@@ -1,0 +1,1 @@
+"""sat_tpu_torch.models — see the modules."""

@@ -37,6 +37,10 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 gate (pytest -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (sat_tpu_torch's CUDA kernels); skips without one",
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -2,9 +2,11 @@
 
 The port of ``sat_tpu`` (the JAX package, which stays the reference) to an
 NVIDIA H100.  It imports ``torch``, never ``jax``, and nothing of
-``sat_tpu``.  Ported so far: batch-mode caption serving — VGG16 encoder,
-soft-attention LSTM decoder, beam search, the HTTP server — with the
-attention step as a hand-written CUDA kernel (``ops.fused_attend``).
+``sat_tpu``.  Ported so far: caption serving in batch and continuous mode —
+VGG16 encoder, soft-attention LSTM decoder, the monolithic beam search and
+the stepped decode over a paged slot pool, the HTTP server — with the
+attention step (unmasked and row-masked) as a hand-written CUDA kernel
+(``ops.fused_attend``).
 
 Exports resolve lazily, so ``import sat_tpu_torch`` loads nothing heavy.
 """
@@ -21,6 +23,7 @@ _EXPORTS = {
     "params_to_flat": ".train.checkpoint",
     "load_serving_state": ".serve.engine",
     "ServeEngine": ".serve.engine",
+    "PagedSlotPool": ".serve.slot_pool",
     "CaptionServer": ".serve.server",
     "serve": ".serve.server",
 }

@@ -3,9 +3,9 @@
 The port of ``sat_tpu.cli`` for the phases ported so far — only
 ``serve``, which runs on the card.  It takes the JAX CLI's flags for that
 phase (``--config``, ``--set key=value``, ``--port``, ``--max_batch``,
-``--max_wait_ms``, ``--model_file``), so one config file and one
-override list drive both packages.  Any other phase exits with "not
-ported yet".
+``--max_wait_ms``, ``--serve_mode``, ``--serve_decode_depth``,
+``--model_file``), so one config file and one override list drive both
+packages.  Any other phase exits with "not ported yet".
 """
 
 from __future__ import annotations
@@ -68,6 +68,16 @@ def build_config(argv: Optional[List[str]] = None):
         help="serve: how long an underfull batch is held open",
     )
     p.add_argument(
+        "--serve_mode", choices=("batch", "continuous"), default=None,
+        help="serve: 'batch' dispatches whole padded batches; 'continuous' "
+             "seeds requests into a paged slot pool between decode steps",
+    )
+    p.add_argument(
+        "--serve_decode_depth", default=None, metavar="K1,K2,...",
+        help="serve (continuous): the fused decode window's depths, starting "
+             "at 1; the deepest runs while no request waits, K=1 otherwise",
+    )
+    p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="override any Config field, repeatable",
     )
@@ -84,6 +94,12 @@ def build_config(argv: Optional[List[str]] = None):
         config = config.replace(serve_max_batch=args.max_batch)
     if args.max_wait_ms is not None:
         config = config.replace(serve_max_wait_ms=args.max_wait_ms)
+    if args.serve_mode is not None:
+        config = config.replace(serve_mode=args.serve_mode)
+    if args.serve_decode_depth is not None:
+        config = config.replace(serve_decode_depth=tuple(
+            int(k) for k in args.serve_decode_depth.split(",") if k
+        ))
     overrides = {}
     for item in args.set:
         if "=" not in item:

@@ -1,8 +1,10 @@
 // fused_attend: the 2-layer soft-attention step of the decoder, for Hopper.
 //
-// Replaces the TPU kernel `_make_kernel` (unmasked body) of
-// sat_tpu/ops/pallas_attention.py, reached through `fused_attend`.  Per
-// batch row b:
+// Replaces both TPU kernels of sat_tpu/ops/pallas_attention.py, reached
+// through `fused_attend`: the unmasked body `_make_kernel` (MASKED =
+// false, the monolithic beam search) and the row-masked body
+// `_make_masked_kernel` (MASKED = true, the slot pool's stepped decode).
+// Per batch row b:
 //
 //   temp[n,k] = t1[b,n,k] + t2[b,k]                       fp32
 //   logit[n]  = rnd(sum_k rnd(temp[n,k]) * rnd(w2[k]))     product and sum fp32
@@ -27,11 +29,18 @@
 // in shared memory.  Loops are bounded by N, da and D, never padded; the
 // 16-byte path needs da and D to be multiples of 4 (else a scalar path).
 //
+// Masked body: row_mask[b] == 0 marks a dead pool slot, whose inputs may
+// hold NaN or Inf.  Its block writes +0.0 to alpha and ctx and returns
+// without reading t1, t2 or contexts, so nothing non-finite is ever
+// touched; a live row runs the unmasked code unchanged and comes out
+// bitwise equal to it.  Bound: bytes of the live rows only, r*N*(da+D)*4
+// for r live rows (38.5 MB at 48 live rows of the flagship pool).
+//
 // Known cost: B blocks for B rows, so at B=96 only 96 of the 132 SMs work.
 //
 // C interface (loaded with ctypes): fused_attend_launch() enqueues on the
 // given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError().
+// cudaGetLastError().  A null row_mask launches the unmasked body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,12 +93,14 @@ __device__ __forceinline__ float4 f4_fma(float s, float4 a, float4 c) {
                      fmaf(s, a.w, c.w));
 }
 
+// MASKED: row_mask[b] == 0 rows write zeros and return
 // VEC_DA: da % 4 == 0 (16-byte loads in phase 1)
 // VEC_D:  D % 4 == 0  (16-byte loads in phase 3)
-template <int MODE, bool VEC_DA, bool VEC_D>
+template <int MODE, bool MASKED, bool VEC_DA, bool VEC_D>
 __global__ void __launch_bounds__(kThreads)
 fused_attend_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
                     const float* __restrict__ w2, const float* __restrict__ ctx,
+                    const unsigned char* __restrict__ row_mask,
                     float* __restrict__ out_ctx, float* __restrict__ out_alpha,
                     int N, int da, int D) {
   // shared layout (floats, each part a multiple of 4 for 16-byte access):
@@ -105,6 +116,11 @@ fused_attend_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (MASKED && row_mask[b] == 0) {  // uniform over the block: no barrier skipped
+    for (int n = tid; n < N; n += kThreads) out_alpha[(size_t)b * N + n] = 0.f;
+    for (int d = tid; d < D; d += kThreads) out_ctx[(size_t)b * D + d] = 0.f;
+    return;
+  }
   const float* t1b = t1 + (size_t)b * N * da;
   const float* t2b = t2 + (size_t)b * da;
   const float* cb = ctx + (size_t)b * N * D;
@@ -217,32 +233,43 @@ fused_attend_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
   }
 }
 
-template <int MODE, bool VEC_DA, bool VEC_D>
+template <int MODE, bool MASKED, bool VEC_DA, bool VEC_D>
 cudaError_t launch(const float* t1, const float* t2, const float* w2, const float* ctx,
-                   float* out_ctx, float* out_alpha, int B, int N, int da, int D,
-                   size_t smem, cudaStream_t stream) {
-  auto kernel = fused_attend_kernel<MODE, VEC_DA, VEC_D>;
+                   const unsigned char* mask, float* out_ctx, float* out_alpha, int B,
+                   int N, int da, int D, size_t smem, cudaStream_t stream) {
+  auto kernel = fused_attend_kernel<MODE, MASKED, VEC_DA, VEC_D>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<B, kThreads, smem, stream>>>(t1, t2, w2, ctx, out_ctx, out_alpha, N, da, D);
+  kernel<<<B, kThreads, smem, stream>>>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, N, da, D);
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, bool MASKED>
 cudaError_t dispatch_vec(const float* t1, const float* t2, const float* w2,
-                         const float* ctx, float* out_ctx, float* out_alpha, int B,
-                         int N, int da, int D, size_t smem, cudaStream_t stream) {
+                         const float* ctx, const unsigned char* mask, float* out_ctx,
+                         float* out_alpha, int B, int N, int da, int D, size_t smem,
+                         cudaStream_t stream) {
   const bool vda = (da % 4) == 0, vd = (D % 4) == 0;
   if (vda && vd)
-    return launch<MODE, true, true>(t1, t2, w2, ctx, out_ctx, out_alpha, B, N, da, D, smem, stream);
+    return launch<MODE, MASKED, true, true>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, B, N, da, D, smem, stream);
   if (vda)
-    return launch<MODE, true, false>(t1, t2, w2, ctx, out_ctx, out_alpha, B, N, da, D, smem, stream);
+    return launch<MODE, MASKED, true, false>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, B, N, da, D, smem, stream);
   if (vd)
-    return launch<MODE, false, true>(t1, t2, w2, ctx, out_ctx, out_alpha, B, N, da, D, smem, stream);
-  return launch<MODE, false, false>(t1, t2, w2, ctx, out_ctx, out_alpha, B, N, da, D, smem, stream);
+    return launch<MODE, MASKED, false, true>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, B, N, da, D, smem, stream);
+  return launch<MODE, MASKED, false, false>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, B, N, da, D, smem, stream);
+}
+
+template <int MODE>
+cudaError_t dispatch_mask(const float* t1, const float* t2, const float* w2,
+                          const float* ctx, const unsigned char* mask, float* out_ctx,
+                          float* out_alpha, int B, int N, int da, int D, size_t smem,
+                          cudaStream_t stream) {
+  if (mask == nullptr)
+    return dispatch_vec<MODE, false>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, B, N, da, D, smem, stream);
+  return dispatch_vec<MODE, true>(t1, t2, w2, ctx, mask, out_ctx, out_alpha, B, N, da, D, smem, stream);
 }
 
 // bytes of dynamic shared memory one block needs
@@ -255,17 +282,19 @@ size_t smem_bytes(int N, int da) {
 
 extern "C" {
 
-// mode: 0 = float32, 1 = bfloat16 compute dtype.
+// mode: 0 = float32, 1 = bfloat16 compute dtype.  row_mask: [B] bytes,
+// 0 = dead row, or null for the unmasked body.
 // Returns a cudaError_t (0 = launched).
 int fused_attend_launch(const float* t1, const float* t2, const float* w2,
-                        const float* ctx, float* out_ctx, float* out_alpha, int B,
-                        int N, int da, int D, int mode, void* stream) {
+                        const float* ctx, const unsigned char* row_mask, float* out_ctx,
+                        float* out_alpha, int B, int N, int da, int D, int mode,
+                        void* stream) {
   if (B <= 0 || N <= 0 || da <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(N, da);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return (int)dispatch_vec<0>(t1, t2, w2, ctx, out_ctx, out_alpha, B, N, da, D, smem, s);
-    case 1: return (int)dispatch_vec<1>(t1, t2, w2, ctx, out_ctx, out_alpha, B, N, da, D, smem, s);
+    case 0: return (int)dispatch_mask<0>(t1, t2, w2, ctx, row_mask, out_ctx, out_alpha, B, N, da, D, smem, s);
+    case 1: return (int)dispatch_mask<1>(t1, t2, w2, ctx, row_mask, out_ctx, out_alpha, B, N, da, D, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

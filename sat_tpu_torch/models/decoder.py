@@ -13,7 +13,7 @@ summation order:
 * the LSTM is a TF1 LSTMCell — one ``[in+H, 4H]`` kernel, gates
   (i, j, f, o), ``forget_bias=1.0`` — not ``torch.nn.LSTMCell``.
 
-No dropout and no training path: this slice of the port only serves.
+No dropout and no training path: the port only serves so far.
 """
 
 from __future__ import annotations
@@ -96,9 +96,19 @@ def precompute_attend(params: Params, config: Config, contexts: torch.Tensor) ->
     return _dense(p["fc_1a"], contexts, activation="tanh", dtype=dt)
 
 
-def _softmax_context(logits: torch.Tensor, contexts: torch.Tensor):
-    alpha = torch.softmax(logits.float(), dim=-1)
+def _softmax_context(logits: torch.Tensor, contexts: torch.Tensor, valid=None):
+    """Softmax over N and the weighted context sum; ``valid`` [B, 1] bool
+    zeroes dead rows' logits before the softmax and alpha and context
+    after it, as the JAX decoder's ``jnp.where`` does."""
+    logits = logits.float()
+    if valid is not None:
+        logits = torch.where(valid, logits, torch.zeros_like(logits))
+    alpha = torch.softmax(logits, dim=-1)
+    if valid is not None:
+        alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
     context = torch.bmm(alpha.unsqueeze(1), contexts).squeeze(1)
+    if valid is not None:
+        context = torch.where(valid, context, torch.zeros_like(context))
     return context, alpha
 
 
@@ -108,26 +118,33 @@ def attend_with_precomputed(
     contexts: torch.Tensor,
     ctx_proj: torch.Tensor,
     output: torch.Tensor,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(context [B, D], alpha [B, N]) from the hoisted ``ctx_proj``.
 
     With ``use_pallas_attention`` the 2-layer combine goes through
     :func:`~sat_tpu_torch.ops.fused_attend.fused_attend`: the CUDA kernel
-    for tensors on the card, its plain version for tensors on the CPU."""
+    for tensors on the card, its plain version for tensors on the CPU.
+
+    ``row_mask`` [B] bool (the slot pool's dead-slot mask): False rows get
+    zero logits, alpha and context on every path, so a retired slot's
+    stale state can never emit a NaN; True rows are bitwise those of the
+    unmasked call."""
     p = params["attend"]
     dt = compute_dtype(config)
+    valid = None if row_mask is None else row_mask.reshape(-1, 1)
     if config.num_attend_layers == 1:
         logits = ctx_proj + _dense(p["fc_b"], output, dtype=dt)
-        return _softmax_context(logits, contexts)
+        return _softmax_context(logits, contexts, valid)
     t2 = _dense(p["fc_1b"], output, activation="tanh", dtype=dt)
     if config.use_pallas_attention:
         return fused_attend(
-            ctx_proj, t2, p["fc_2"]["kernel"], contexts,
+            ctx_proj, t2, p["fc_2"]["kernel"], contexts, row_mask=row_mask,
             compute_dtype=config.compute_dtype,
         )
     temp = ctx_proj + t2.unsqueeze(1)
     logits = _dense(p["fc_2"], temp, dtype=dt)[..., 0]
-    return _softmax_context(logits, contexts)
+    return _softmax_context(logits, contexts, valid)
 
 
 def decode_logits(params: Params, config: Config, expanded_output: torch.Tensor) -> torch.Tensor:
@@ -147,15 +164,19 @@ def decoder_step(
     state: DecoderState,
     word: torch.Tensor,
     ctx_proj: Optional[torch.Tensor] = None,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[DecoderState, torch.Tensor, torch.Tensor]:
     """One decoder step: attend → embed → LSTM → logits.
 
     Returns (new_state, logits [B, V], alpha [B, N]).  ``ctx_proj`` is the
-    hoisted :func:`precompute_attend` output; None recomputes it."""
+    hoisted :func:`precompute_attend` output; None recomputes it.
+    ``row_mask`` [B] bool goes to :func:`attend_with_precomputed` (the
+    stepped decode's dead-slot mask); the monolithic search never sets
+    it."""
     if ctx_proj is None:
         ctx_proj = precompute_attend(params, config, contexts)
     context, alpha = attend_with_precomputed(
-        params, config, contexts, ctx_proj, state.output
+        params, config, contexts, ctx_proj, state.output, row_mask=row_mask
     )
     word_embed = params["word_embedding"]["weights"][word]
     lstm_input = torch.cat([context, word_embed], dim=-1)

@@ -7,8 +7,11 @@ the rounding through ``compute_dtype`` that the Pallas kernel applies.
 :func:`fused_attend` launches the hand-written CUDA kernel
 (``csrc/fused_attend.cu``) for tensors on the card, and runs
 :func:`fused_attend_reference`, its plain torch version, for tensors on
-the CPU.  Any other device raises.  ``row_mask`` (the slot pool's masked
-body) exists only in the plain version so far: on the card it raises.
+the CPU.  Any other device raises.  With ``row_mask`` (the slot pool's
+stepped decode) the card runs the kernel's masked body: dead rows come
+out +0.0 whatever their inputs, live rows bitwise equal to the unmasked
+body.  ``fused_attend.launches`` counts unmasked launches and
+``fused_attend.masked_launches`` masked ones.
 """
 
 from __future__ import annotations
@@ -46,10 +49,10 @@ def fused_attend_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`fused_attend`: the logits of
     :func:`reference_logits`, softmax and context sum in fp32.
-    ``row_mask`` [B] bool: False rows get logits 0 before the softmax and
-    alpha/ctx 0 after (the Pallas masked body)."""
+    ``row_mask`` [B] bool or uint8: zero rows get logits 0 before the
+    softmax and alpha/ctx 0 after (the Pallas masked body)."""
     logits = reference_logits(t1, t2, w2, compute_dtype)
-    valid = None if row_mask is None else row_mask.reshape(-1, 1)
+    valid = None if row_mask is None else row_mask.reshape(-1, 1) != 0
     if valid is not None:
         logits = torch.where(valid, logits, torch.zeros_like(logits))
     alpha = torch.softmax(logits, dim=-1)
@@ -120,10 +123,10 @@ def agreement(got, want, contexts, logits, compute_dtype: str) -> dict:
     return dict(rep, ok=True)
 
 
-def _launch(lib, t1, t2, w2, contexts, out_ctx, out_alpha, mode: int) -> int:
+def _launch(lib, t1, t2, w2, contexts, row_mask, out_ctx, out_alpha, mode: int) -> int:
     fn = lib.fused_attend_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.fused_attend_error_string.argtypes = [ctypes.c_int]
         lib.fused_attend_error_string.restype = ctypes.c_char_p
@@ -131,9 +134,23 @@ def _launch(lib, t1, t2, w2, contexts, out_ctx, out_alpha, mode: int) -> int:
     D = contexts.shape[-1]
     return fn(
         t1.data_ptr(), t2.data_ptr(), w2.data_ptr(), contexts.data_ptr(),
+        None if row_mask is None else row_mask.data_ptr(),
         out_ctx.data_ptr(), out_alpha.data_ptr(), B, N, da, D, mode,
         torch.cuda.current_stream(t1.device).cuda_stream,
     )
+
+
+def _check_mask(row_mask, t1) -> None:
+    if row_mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"fused_attend: row_mask must be bool or uint8, got {row_mask.dtype}")
+    if tuple(row_mask.shape) != (t1.shape[0],):
+        raise ValueError(
+            f"fused_attend: row_mask {tuple(row_mask.shape)} must be [B] = ({t1.shape[0]},)"
+        )
+    if row_mask.device != t1.device:
+        raise ValueError(f"fused_attend: row_mask on {row_mask.device}, t1 on {t1.device}")
+    if not row_mask.is_contiguous():
+        raise ValueError("fused_attend: row_mask must be contiguous")
 
 
 def _check(t1, t2, w2, contexts) -> None:
@@ -167,31 +184,39 @@ def fused_attend(
     """(ctx [B, D], alpha [B, N]) float32 from t1 [B, N, da], t2 [B, da],
     w2 [da, 1] and contexts [B, N, D], all float32 and contiguous.
 
+    ``row_mask``: None, or a contiguous [B] bool or uint8 tensor on t1's
+    device whose zero rows are dead (outputs +0.0, inputs never read).
+
     On a CUDA tensor: one launch of the CUDA kernel on the current stream
-    (counted in ``fused_attend.launches``); on a CPU tensor: the plain
-    version.  Nothing falls back from the one to the other."""
+    (counted in ``fused_attend.launches``, or ``masked_launches`` with a
+    ``row_mask``); on a CPU tensor: the plain version.  Nothing falls
+    back from the one to the other."""
     if compute_dtype not in _MODES:
         raise ValueError(f"fused_attend: compute_dtype {compute_dtype!r} not in {sorted(_MODES)}")
     if t1.device.type == "cpu":
         return fused_attend_reference(t1, t2, w2, contexts, row_mask, compute_dtype)
     if t1.device.type != "cuda":
         raise ValueError(f"fused_attend: no kernel for device {t1.device}")
-    if row_mask is not None:
-        raise NotImplementedError("fused_attend row_mask on CUDA: masked body: slot-pool slice")
     _check(t1, t2, w2, contexts)
+    if row_mask is not None:
+        _check_mask(row_mask, t1)
     from . import build
 
     lib = build.load("fused_attend")
     B, N, _ = t1.shape
     out_ctx = torch.empty((B, contexts.shape[-1]), device=t1.device, dtype=torch.float32)
     out_alpha = torch.empty((B, N), device=t1.device, dtype=torch.float32)
-    err = _launch(lib, t1, t2, w2, contexts, out_ctx, out_alpha, _MODES[compute_dtype])
+    err = _launch(lib, t1, t2, w2, contexts, row_mask, out_ctx, out_alpha, _MODES[compute_dtype])
     if err:
         raise RuntimeError(
             f"fused_attend launch failed: {lib.fused_attend_error_string(err).decode()}"
         )
-    fused_attend.launches += 1
+    if row_mask is None:
+        fused_attend.launches += 1
+    else:
+        fused_attend.masked_launches += 1
     return out_ctx, out_alpha
 
 
 fused_attend.launches = 0
+fused_attend.masked_launches = 0

@@ -1,15 +1,22 @@
-"""Admission control and whole-batch dispatch — the port of
-``sat_tpu.serve.batcher``'s ``MicroBatcher`` (``serve_mode="batch"``).
+"""Admission control and dispatch — the port of ``sat_tpu.serve.batcher``.
 
-Requests wait in a bounded queue (429 beyond ``serve_queue_depth``, 503
-while draining).  The dispatch thread blocks for a first request, holds
-the batch open up to ``serve_max_wait_ms`` or until ``serve_max_batch``
-requests, fails expired deadlines with 504 before any device time, pads
-to the engine's bucket, dispatches one beam search, drains and
-detokenizes.  Beam search here syncs the host every step, so a dispatch
-returns with its result done; there is no in-flight pipeline to drain.
-Tenants, the quality plane, lifecycle control and the wedge watchdog are
-later slices of the port.
+Both batchers share one bounded-queue admission contract (429 beyond
+``serve_queue_depth``, 503 while draining, 504 for an expired deadline
+before any device time):
+
+* :class:`MicroBatcher` (``serve_mode="batch"``): the dispatch thread
+  blocks for a first request, holds the batch open up to
+  ``serve_max_wait_ms`` or until ``serve_max_batch`` requests, pads to the
+  engine's bucket, dispatches one beam search, drains and detokenizes.
+  Beam search here syncs the host every step, so a dispatch returns with
+  its result done; there is no in-flight pipeline to drain.
+* :class:`ContinuousBatcher` (``serve_mode="continuous"``): requests are
+  seeded into free slots of a :class:`~sat_tpu_torch.serve.slot_pool.PagedSlotPool`
+  between fused decode windows, and each slot is harvested the window it
+  finishes; detokenization runs on its own thread.
+
+Tenants, the quality plane, lifecycle control, canary and resident-model
+pools and the wedge watchdog are later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,6 +30,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .engine import BucketOverflow
+
+
+def choose_decode_depth(depths: Tuple[int, ...], queue_depth: int, pending: int) -> int:
+    """The fused window's depth for the next tick: with requests waiting
+    to be seeded (queued, or held for a free slot) the shallowest depth,
+    so they are admitted at the next tick; with none, the deepest, so
+    each tick spends one host dispatch on the most device steps."""
+    if queue_depth > 0 or pending > 0:
+        return depths[0]
+    return depths[-1]
 
 
 class Rejected(Exception):
@@ -51,20 +68,15 @@ class Request:
         self.done.set()
 
 
-class MicroBatcher:
-    def __init__(
-        self,
-        engine,
-        max_batch: Optional[int] = None,
-        max_wait_ms: Optional[float] = None,
-        queue_depth: Optional[int] = None,
-    ) -> None:
-        config = engine.config
+class _BatcherBase:
+    """Bounded-queue admission, counters and lifecycle shared by both
+    dispatch disciplines; subclasses implement ``_loop``."""
+
+    _thread_name = "sat-torch-serve-batcher"
+
+    def __init__(self, engine, queue_depth: Optional[int] = None) -> None:
         self.engine = engine
-        self.max_batch = int(max_batch if max_batch is not None else config.serve_max_batch)
-        wait_ms = max_wait_ms if max_wait_ms is not None else config.serve_max_wait_ms
-        self.max_wait_s = wait_ms / 1e3
-        depth = int(queue_depth if queue_depth is not None else config.serve_queue_depth)
+        depth = int(queue_depth if queue_depth is not None else engine.config.serve_queue_depth)
         self._q: "queue.Queue[Request]" = queue.Queue(maxsize=depth)
         self._draining = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -101,11 +113,9 @@ class MicroBatcher:
 
     # -- lifecycle ---------------------------------------------------------
 
-    def start(self) -> "MicroBatcher":
+    def start(self):
         if self._thread is None:
-            self._thread = threading.Thread(
-                target=self._loop, name="sat-torch-serve-batcher", daemon=True
-            )
+            self._thread = threading.Thread(target=self._loop, name=self._thread_name, daemon=True)
             self._thread.start()
         return self
 
@@ -116,6 +126,35 @@ class MicroBatcher:
         if self._thread is not None:
             self._thread.join(timeout=timeout)
             self._thread = None
+
+    def _expire(self, reqs: List[Request]) -> List[Request]:
+        """Deadline triage: expired requests fail with 504, no device time."""
+        now = time.time()
+        live = []
+        for r in reqs:
+            if r.deadline_unix is not None and now > r.deadline_unix:
+                self._count("expired")
+                r.fail(504, "deadline expired while queued")
+            else:
+                live.append(r)
+        return live
+
+
+class MicroBatcher(_BatcherBase):
+    """Whole-batch dispatch over the engine's bucket ladder."""
+
+    def __init__(
+        self,
+        engine,
+        max_batch: Optional[int] = None,
+        max_wait_ms: Optional[float] = None,
+        queue_depth: Optional[int] = None,
+    ) -> None:
+        super().__init__(engine, queue_depth)
+        config = engine.config
+        self.max_batch = int(max_batch if max_batch is not None else config.serve_max_batch)
+        wait_ms = max_wait_ms if max_wait_ms is not None else config.serve_max_wait_ms
+        self.max_wait_s = wait_ms / 1e3
 
     # -- dispatch loop -----------------------------------------------------
 
@@ -140,18 +179,6 @@ class MicroBatcher:
             except queue.Empty:
                 break
         return batch
-
-    def _admit(self, batch: List[Request]) -> List[Request]:
-        """Deadline triage: expired requests fail with 504, no device time."""
-        now = time.time()
-        live = []
-        for r in batch:
-            if r.deadline_unix is not None and now > r.deadline_unix:
-                self._count("expired")
-                r.fail(504, "deadline expired while queued")
-            else:
-                live.append(r)
-        return live
 
     def _run(self, live: List[Request]) -> None:
         try:
@@ -182,6 +209,133 @@ class MicroBatcher:
             batch = self._gather()
             if batch is None:
                 break
-            live = self._admit(batch)
+            live = self._expire(batch)
             if live:
                 self._run(live)
+
+
+class ContinuousBatcher(_BatcherBase):
+    """Step-level continuous batching over a paged slot pool.
+
+    Each tick of the loop:
+
+    1. **admit**: pop what is queued, up to the pool's free slots, fail
+       expired deadlines with 504, and seed the rest (``pool.admit``);
+    2. **step**: one fused window of K decode steps over the pool, K
+       chosen by queue pressure (:func:`choose_decode_depth`), enqueued
+       with no host sync; draining its ``done`` flags and ``steps_run``
+       is the window's one sync;
+    3. **harvest**: merge and drain the finished slots, free them, and
+       hand the rows to the detokenizer thread, so string work never
+       holds up the next window.
+
+    A request that arrives during a window waits for that window, not
+    for a whole batch; a caption that seals early frees its slot."""
+
+    _thread_name = "sat-torch-serve-continuous"
+
+    def __init__(self, engine, pool=None, queue_depth: Optional[int] = None) -> None:
+        super().__init__(engine, queue_depth)
+        if pool is None:
+            from .slot_pool import PagedSlotPool
+
+            pool = PagedSlotPool(engine)
+        self.pool = pool
+        self._detok_q: "queue.Queue" = queue.Queue()
+        self._detok_thread: Optional[threading.Thread] = None
+
+    def start(self) -> "ContinuousBatcher":
+        if self.pool._carry is None:
+            self.pool.warmup()
+        if self._detok_thread is None:
+            self._detok_thread = threading.Thread(
+                target=self._detok_loop, name="sat-torch-serve-detok", daemon=True
+            )
+            self._detok_thread.start()
+        return super().start()
+
+    # -- the step loop -----------------------------------------------------
+
+    def _take(self, held: List[Request]) -> List[Request]:
+        """``held`` plus whatever is queued now, up to the free slots, less
+        the expired."""
+        reqs = held
+        while len(reqs) < self.pool.free_count():
+            try:
+                reqs.append(self._q.get_nowait())
+            except queue.Empty:
+                break
+        return self._expire(reqs)
+
+    def _admit(self, reqs: List[Request]) -> None:
+        n = self.pool.admit([(r.image, r) for r in reqs])
+        self._count("admitted", n)
+        for r in reqs[:n]:
+            r.bucket = self.pool.width  # the page width is this path's "bucket"
+        for r in reqs[n:]:  # never reached: _take pops at most free_count()
+            r.fail(500, "slot pool admission overflow")
+
+    def _step(self) -> np.ndarray:
+        """One fused window; returns the host [S] done flags."""
+        k = choose_decode_depth(self.pool.decode_depths, self._q.qsize(), 0)
+        done_dev, steps_dev = self.pool.multi_step(k)
+        done = done_dev.cpu().numpy()
+        steps = int(steps_dev)
+        self._count("dispatches")
+        self._count(f"dispatch_k{k}")
+        self._count("steps", steps)
+        return done
+
+    def _harvest(self, done: np.ndarray) -> None:
+        payloads, words, lengths, scores, _ = self.pool.harvest(done)
+        self._detok_q.put((payloads, words, lengths, scores))
+
+    def _detok_loop(self) -> None:
+        while True:
+            item = self._detok_q.get()
+            if item is None:
+                return
+            payloads, words, lengths, scores = item
+            try:
+                results = self.engine.detok_rows((words, lengths, scores), len(payloads))
+            except Exception as e:
+                self._count("detok_errors")
+                for r in payloads:
+                    r.fail(500, f"detokenize failed: {e}")
+                continue
+            self._count("completed", len(payloads))
+            for r, result in zip(payloads, results):
+                r.result = result
+                r.done.set()
+
+    def _loop(self) -> None:
+        while True:
+            held: List[Request] = []
+            if self.pool.occupancy() == 0:
+                # idle: park for the first arrival, polling the drain flag
+                try:
+                    held.append(self._q.get(timeout=0.05))
+                except queue.Empty:
+                    if self._draining.is_set():
+                        break
+                    continue
+            reqs = self._take(held)
+            try:
+                if reqs:
+                    self._admit(reqs)
+                if self.pool.occupancy() == 0:
+                    continue  # everything taken had expired
+                done = self._step()
+                if done.any():
+                    self._harvest(done)
+            except Exception as e:  # keep serving; fail only in-flight work
+                self._count("dispatch_errors")
+                for r in self.pool.inflight_payloads() + reqs:
+                    if not r.done.is_set():
+                        r.fail(500, f"decode step failed: {e}")
+                self.pool.reset()
+        # drained: queue and pool empty; flush the detokenizer
+        self._detok_q.put(None)
+        if self._detok_thread is not None:
+            self._detok_thread.join(timeout=30.0)
+            self._detok_thread = None

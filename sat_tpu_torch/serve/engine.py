@@ -1,4 +1,4 @@
-"""Serving engine, batch mode — the port of ``sat_tpu.serve.engine``.
+"""Serving engine — the port of ``sat_tpu.serve.engine``.
 
 Loads frozen params through the checkpoint lineage (``LAST_GOOD`` first,
 walking back past rotted files; a save_dir without a pointer falls back to
@@ -8,8 +8,10 @@ the newest checkpoint that verifies), pads each batch up to a bucket of
 PyTorch runs eagerly, so there are no AOT executables: ``warmup`` runs
 every bucket once on zeros instead, which builds the CUDA kernel and
 settles cuDNN's algorithm choice before the first request.  Continuous
-mode, the encode cache, quantization, canary/resident param slots and
-telemetry spans are later slices of the port; their knobs raise here.
+mode decodes through ``serve.slot_pool`` instead, which warms its own
+lanes.  The encode cache, quantization, canary/resident param slots, the
+wedge watchdog and telemetry spans are later slices of the port; their
+knobs raise here.
 """
 
 from __future__ import annotations
@@ -54,12 +56,12 @@ def check_ported(config: Config) -> None:
     """Raise on serve knobs whose subsystem is not ported yet."""
     check_encoder(config)
     unported = {
-        "serve_mode": (config.serve_mode, "batch"),
         "encode_cache": (config.encode_cache, "off"),
         "serve_quality": (config.serve_quality, "off"),
         "serve_tier": (config.serve_tier, "both"),
         "tenants": (config.tenants, ""),
         "model_reload": (config.model_reload, 0.0),
+        "serve_wedge_timeout_ms": (config.serve_wedge_timeout_ms, 0.0),
     }
     for name, (value, ported) in unported.items():
         if value != ported:
@@ -226,13 +228,21 @@ class ServeEngine:
         that do not decode (the frontend's 400)."""
         return self.loader.load_bytes(data)
 
+    @property
+    def decoder_params(self) -> Dict[str, Any]:
+        return self._params["decoder"]
+
+    @torch.inference_mode()
+    def encode_images(self, images: np.ndarray) -> torch.Tensor:
+        """Host batch [B, S, S, 3] → contexts [B, N, D] on the device."""
+        x = torch.from_numpy(images).to(self.device, non_blocking=True)
+        return encode(self._params, self.config, x)
+
     @torch.inference_mode()
     def dispatch(self, images: np.ndarray) -> BeamResult:
         """Padded batch [bucket, S, S, 3] → BeamResult of device tensors."""
-        x = torch.from_numpy(images).to(self.device, non_blocking=True)
-        contexts = encode(self._params, self.config, x)
         return beam_search(
-            self._params["decoder"], self.config, contexts, self.eos_id,
+            self.decoder_params, self.config, self.encode_images(images), self.eos_id,
             valid_size=len(self.vocabulary.words), return_steps=True,
         )
 

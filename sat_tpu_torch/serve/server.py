@@ -5,12 +5,19 @@ park on an Event while the batcher owns the device.
 
 * ``POST /caption`` — body: image bytes (JPEG/PNG).  200 →
   ``{"captions": [{"caption", "log_prob", "prob"}, ...beam-ordered],
-  "bucket", "model_step"}``, the JAX server's payload.  400 for an empty
+  "bucket", "model_step"}``, the JAX server's payload (``bucket`` is the
+  page width in continuous mode).  400 for an empty
   or undecodable body, 429 when the queue is full, 503 while draining,
   504 past the deadline (``X-Deadline-Ms`` or ``serve_deadline_ms``).
 * ``GET /healthz`` — 200 ``{"status": "ok"}`` when ready, 503 otherwise.
-* ``GET /stats`` — queue depth, requests served, batcher counters and
-  ``fused_attend`` launches.
+* ``GET /stats`` — queue depth, requests served, batcher counters,
+  ``fused_attend`` launches (unmasked and masked) and, in continuous
+  mode, a ``slot_pool`` block.
+
+``serve_mode="batch"`` dispatches whole padded batches
+(:class:`MicroBatcher`); ``"continuous"`` seeds requests into a
+:class:`PagedSlotPool` between fused decode windows
+(:class:`ContinuousBatcher`).
 
 Shutdown: SIGTERM/SIGINT (in :func:`serve`) or ``request_shutdown()``
 flips readiness, drains the batcher, then closes the listener.
@@ -29,8 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 from ..config import Config
 from ..data.vocabulary import Vocabulary
 from ..ops.fused_attend import fused_attend
-from .batcher import MicroBatcher, Rejected
+from .batcher import ContinuousBatcher, MicroBatcher, Rejected
 from .engine import ServeEngine, load_serving_state
+from .slot_pool import PagedSlotPool
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -76,6 +84,13 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(status, payload)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # listen backlog: a burst of connections beyond socketserver's default
+    # of 5 waits in the kernel for the accept loop
+    request_queue_size = 128
+    daemon_threads = True
+
+
 class CaptionServer:
     """The batcher plus the HTTP listener around a :class:`ServeEngine`."""
 
@@ -91,7 +106,16 @@ class CaptionServer:
     ) -> None:
         self.config = config
         self.engine = engine
-        self.batcher = MicroBatcher(engine)
+        self.pool: Optional[PagedSlotPool] = None
+        if config.serve_mode == "continuous":
+            self.pool = PagedSlotPool(
+                engine, pages=config.serve_slot_pages, page_width=config.serve_page_width
+            )
+            self.batcher = ContinuousBatcher(
+                engine, pool=self.pool, queue_depth=config.serve_queue_depth
+            )
+        else:
+            self.batcher = MicroBatcher(engine)
         self._host = host if host is not None else config.serve_host
         self._requested_port = port if port is not None else config.serve_port
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -144,23 +168,39 @@ class CaptionServer:
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             served = self._served
-        return {
+        counters = self.batcher.counter_snapshot()
+        out = {
             "queue_depth": self.batcher.queue_depth(),
             "requests_served": served,
             "buckets": list(self.engine.buckets),
             "device": str(self.engine.device),
             "model_step": self.engine.step,
-            "counters": self.batcher.counter_snapshot(),
-            "kernels": {"fused_attend": {"launches": fused_attend.launches}},
+            "counters": counters,
+            "kernels": {"fused_attend": {
+                "launches": fused_attend.launches,
+                "masked_launches": fused_attend.masked_launches,
+            }},
         }
+        if self.pool is not None:
+            out["slot_pool"] = {
+                "slots": self.pool.slots,
+                "pages": self.pool.pages,
+                "page_width": self.pool.width,
+                "occupancy": self.pool.occupancy(),
+                "dispatches": counters.get("dispatches", 0),
+                "steps": counters.get("steps", 0),
+                "dispatches_per_k": {
+                    str(k): counters.get(f"dispatch_k{k}", 0) for k in self.pool.decode_depths
+                },
+            }
+        return out
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "CaptionServer":
         self.batcher.start()
-        self._httpd = ThreadingHTTPServer((self._host, self._requested_port), _Handler)
+        self._httpd = _HTTPServer((self._host, self._requested_port), _Handler)
         self._httpd.app = self
-        self._httpd.daemon_threads = True
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, name="sat-torch-serve-http", daemon=True
         )
@@ -198,7 +238,8 @@ class CaptionServer:
 def serve(config: Config, model_file: Optional[str] = None, device=None) -> int:
     """CLI entry point: ``python -m sat_tpu_torch.cli --phase serve``.
 
-    Lineage load → warm every bucket → listen → drain on SIGTERM/SIGINT."""
+    Lineage load → warm every bucket (batch mode) or the slot pool
+    (continuous mode) → listen → drain on SIGTERM/SIGINT."""
     vocabulary = Vocabulary(config.vocabulary_size, config.vocabulary_file)
     state, source = load_serving_state(config, model_file=model_file, device=device)
     engine = ServeEngine(config, state, vocabulary, device=device)
@@ -207,13 +248,24 @@ def serve(config: Config, model_file: Optional[str] = None, device=None) -> int:
         file=sys.stderr,
         flush=True,
     )
-    engine.warmup()
+    if config.serve_mode == "batch":
+        # continuous mode warms the slot pool instead, in the batcher's start
+        engine.warmup()
     server = CaptionServer(config, engine).start()
+    if server.pool is not None:
+        pool = server.pool
+        geometry = (
+            f"mode continuous, slot pool {pool.pages}x{pool.width} ({pool.slots} slots), "
+            f"lanes {pool.lane_widths}, decode depths {list(pool.decode_depths)}"
+        )
+    else:
+        geometry = (
+            f"mode batch, buckets {engine.buckets}, max_batch {config.serve_max_batch}, "
+            f"max_wait {config.serve_max_wait_ms}ms"
+        )
     print(
         f"sat_tpu_torch: captioning server listening on "
-        f"http://{config.serve_host}:{server.port}  (mode batch, buckets "
-        f"{engine.buckets}, max_batch {config.serve_max_batch}, max_wait "
-        f"{config.serve_max_wait_ms}ms)",
+        f"http://{config.serve_host}:{server.port}  ({geometry})",
         file=sys.stderr,
         flush=True,
     )

@@ -100,27 +100,47 @@ def test_bf16_agreement_rule_tells_rounding_from_summation_order():
     assert not agreement(off, want, ctx, logits, "bfloat16")["ok"]
 
 
-def test_masked_plain_version_matches_the_masked_kernel():
-    """Dead rows hold NaN/Inf garbage: they come out zero, and live rows
-    match the masked Pallas body."""
-    rng = np.random.default_rng(7)
-    B, N, da, D = 5, 13, 16, 24
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,N,da,D,live",
+    [(5, 13, 16, 24, (0, 2, 4)), (9, 7, 24, 40, (4,)), (3, 21, 8, 12, ())],
+)
+def test_masked_plain_version_matches_the_masked_kernel(B, N, da, D, live, dtype):
+    """Dead rows hold NaN and ±Inf: they come out zero, and live rows
+    match the masked Pallas body (odd B, one live row, none live)."""
+    rng = np.random.default_rng(7 + B)
     t1, t2, w2, ctx = _inputs(rng, B, N, da, D)
-    mask = np.array([True, False, True, False, True])
-    t1[1] = np.nan
-    t2[3] = np.inf
-    ctx[1] = np.nan
+    mask = np.isin(np.arange(B), live)
+    t1[~mask] = np.nan
+    t2[~mask] = np.where(np.arange(da) % 2, np.inf, -np.inf)
+    ctx[~mask] = np.nan
     want_ctx, want_alpha = pallas_attention.fused_attend(
-        *map(jnp.asarray, (t1, t2, w2, ctx)), row_mask=jnp.asarray(mask), interpret=True
+        *map(jnp.asarray, (t1, t2, w2, ctx)), row_mask=jnp.asarray(mask),
+        compute_dtype=dtype, interpret=True,
     )
-    got_ctx, got_alpha = fused_attend_reference(
-        *map(torch.from_numpy, (t1, t2, w2, ctx)), row_mask=torch.from_numpy(mask)
-    )
+    args = [torch.from_numpy(x) for x in (t1, t2, w2, ctx)]
+    got_ctx, got_alpha = fused_attend_reference(*args, row_mask=torch.from_numpy(mask),
+                                                compute_dtype=dtype)
     assert np.isfinite(got_ctx.numpy()).all() and np.isfinite(got_alpha.numpy()).all()
     assert (got_alpha.numpy()[~mask] == 0).all() and (got_ctx.numpy()[~mask] == 0).all()
-    tol = TOLERANCES["float32"]
-    np.testing.assert_allclose(got_alpha.numpy(), np.asarray(want_alpha), **tol["alpha"])
-    np.testing.assert_allclose(got_ctx.numpy(), np.asarray(want_ctx), **tol["ctx"])
+    if dtype == "float32":
+        tol = TOLERANCES[dtype]
+        np.testing.assert_allclose(got_alpha.numpy(), np.asarray(want_alpha), **tol["alpha"])
+        np.testing.assert_allclose(got_ctx.numpy(), np.asarray(want_ctx), **tol["ctx"])
+    elif mask.any():
+        rows = torch.from_numpy(mask)
+        rep = agreement(
+            (got_ctx[rows], got_alpha[rows]),
+            (torch.from_numpy(np.array(want_ctx))[rows], torch.from_numpy(np.array(want_alpha))[rows]),
+            args[3][rows], reference_logits(*(a[rows] for a in args[:2]), args[2], dtype), dtype,
+        )
+        assert rep["ok"], rep
+    np.testing.assert_array_equal(np.asarray(want_alpha)[~mask], 0)
+    # on a CPU tensor the wrapper is the plain version; a uint8 mask is the same mask
+    wrapped = fused_attend(*args, row_mask=torch.from_numpy(mask.astype(np.uint8)),
+                           compute_dtype=dtype)
+    torch.testing.assert_close(wrapped[0], got_ctx, rtol=0, atol=0)
+    torch.testing.assert_close(wrapped[1], got_alpha, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("layers", [1, 2])

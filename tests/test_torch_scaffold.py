@@ -86,7 +86,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "knob",
     [
-        {"serve_mode": "continuous"},
+        {"serve_wedge_timeout_ms": 250.0},  # the watchdog is not ported: never ignored
         {"encoder_quant": "int8"},
         {"encode_cache": "on"},
         {"cnn": "resnet50"},

@@ -44,10 +44,11 @@ def _jpegs(n, size=48, seed=0):
     return out
 
 
-@pytest.fixture(scope="module")
-def served(tmp_path_factory):
-    root = tmp_path_factory.mktemp("serve")
-    jc, tc = configs(
+def make_checkpoint(root, **overrides):
+    """A vocabulary and a step-5 checkpoint with LAST_GOOD under ``root``
+    in sat_tpu's format; returns (jax config, port config, variables,
+    jax vocabulary)."""
+    settings = dict(
         save_dir=str(root / "models"),
         vocabulary_file=str(root / "vocabulary.csv"),
         serve_buckets=(1, 4),
@@ -55,6 +56,7 @@ def served(tmp_path_factory):
         serve_max_wait_ms=20.0,
         beam_size=2,
     )
+    jc, tc = configs(**{**settings, **overrides})
     vocab = JaxVocabulary(size=jc.vocabulary_size)
     vocab.build([f"{a} {b} {c}." for a in WORDS for b in WORDS[:3] for c in WORDS[:2]])
     vocab.save(jc.vocabulary_file)
@@ -67,6 +69,12 @@ def served(tmp_path_factory):
         path, vocab=jax_vocab_fingerprint(jc.vocabulary_file, jc.vocabulary_size)
     )
     jax_lineage.mark_last_good(jc.save_dir, 5)
+    return jc, tc, variables, vocab
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    jc, tc, variables, vocab = make_checkpoint(tmp_path_factory.mktemp("serve"))
 
     from sat_tpu_torch.data.vocabulary import Vocabulary
 

@@ -6,10 +6,14 @@ Phases, each fatal on failure:
 1. device — a CUDA card must be visible; prints its name and power limit.
 2. build  — compiles every ``sat_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
 3. kernel — the CUDA ``fused_attend`` against its plain torch version on
-   the card, at the flagship decode shape (bucket 32 × beam 3 = 96 rows,
-   N=196, da=D=512) and a ragged one, in float32 and bfloat16, with a
-   control that a kernel rounding in the wrong place fails; times both
-   with CUDA events beside the kernel's memory bound.
+   the card, at the flagship decode shapes (buckets 32, 16, 4 and 1 ×
+   beam 3 = 96, 48, 12 and 3 rows, N=196, da=D=512) and two ragged ones,
+   in float32 and bfloat16, with a control that a kernel rounding in the
+   wrong place fails; times each with CUDA events beside the kernel's
+   memory bound, and prints its launch plan (blocks per row, shared
+   memory a block).  Then row invariance at full width: one row placed
+   at several indices of batches of 1 to 108 rows, masked and unmasked,
+   must come out bitwise the same.
 4. masked — the kernel's masked body (the slot pool's) at B = 48 (the
    flagship pool, 16 slots × beam 3), 5 and 3, float32 and bfloat16, with
    every row, one row or every other row live and NaN/±Inf in the dead
@@ -47,10 +51,17 @@ Phases, each fatal on failure:
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or
 without the package beside it.
+
+``python3 chip_smoke.py --bench`` runs only the build and a kernel
+bench: the kernel at every timed shape beside what bounds it there, the
+timing floor (a one-float memset), torch's sum over the same bytes, and
+both timed after a flush that reads instead of writes (no dirty lines to
+write back); and the host time to enqueue one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -89,19 +100,21 @@ def attention_inputs(torch, B, N, da, D, gen):
     return t1, t2, w2, ctx
 
 
-def time_ms(torch, fn, flush, reps: int = 60, warm: int = 10) -> float:
+def time_ms(torch, fn, flush, reps: int = 60, warm: int = 10, read_flush: bool = False) -> float:
     """Median device time of ``reps`` single calls, by CUDA events, with
     the L2 cache flushed before each (the decode loop streams t1 and
     contexts back from device memory every step).  A spin kernel ahead
     of each call keeps the card busy while the host enqueues it, so the
-    host's launch overhead stays out of the interval."""
+    host's launch overhead stays out of the interval.  The flush writes
+    ``flush``, leaving dirty lines the timed call writes back; with
+    ``read_flush`` (the bench's comparison) it reads it instead."""
     for _ in range(warm):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         torch.cuda._sleep(1_000_000)  # ~0.5 ms of spinning
-        flush.zero_()
+        flush.max() if read_flush else flush.zero_()
         s.record()
         fn()
         e.record()
@@ -198,6 +211,10 @@ def masked_phase(torch, fa):
     return rows, max(errs)
 
 
+KERNEL_SHAPES = ((96, 196, 512, 512), (48, 196, 512, 512), (12, 196, 512, 512), (5, 7, 24, 40),
+                 (2, 5, 22, 38), (3, 196, 512, 512))
+
+
 def kernel_phase(torch, fa):
     """The kernel against its plain version by ``fa.agreement`` (float32:
     elementwise; bfloat16: the same rounded logits up to rare one-ulp
@@ -206,7 +223,10 @@ def kernel_phase(torch, fa):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
-    for (B, N, da, D) in ((96, 196, 512, 512), (5, 7, 24, 40), (3, 196, 512, 512)):
+    for (B, N, da, D) in KERNEL_SHAPES:
+        plan = fa.attend_plan(N, da, D)
+        print(f"plan fused_attend N={N} da={da} D={D}: {plan.cluster} blocks a row, "
+              f"{plan.smem_bytes} bytes of shared memory a block, {plan._asdict()}", flush=True)
         for dtype in ("float32", "bfloat16"):
             args = attention_inputs(torch, B, N, da, D, gen)
             got = fa.fused_attend(*args, compute_dtype=dtype)
@@ -234,7 +254,79 @@ def kernel_phase(torch, fa):
             rows.append(dict(B=B, N=N, da=da, D=D, dtype=dtype, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              max_abs_err=rep["max_abs_err"]))
+    row_invariance(torch, fa)
     return rows
+
+
+def row_invariance(torch, fa, N=196, da=512, D=512):
+    """One row at full width placed at the first, middle and last index of
+    batches of 1, 3, 48, 96 and 108 rows among other rows, unmasked and
+    masked (the row live, the others live or dead at random): its ctx and
+    alpha must be bitwise the same every time, in both dtypes.  The slot
+    pool's gate (a reply decoded in the 48-row pool is bitwise the
+    monolithic search's over 108 rows) rests on this."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    row = attention_inputs(torch, 1, N, da, D, gen)
+    cases = 0
+    for dtype in ("float32", "bfloat16"):
+        want = fa.fused_attend(*row, compute_dtype=dtype)
+        for B in (1, 3, 48, 96, 108):
+            t1, t2, _, ctx = attention_inputs(torch, B, N, da, D, gen)
+            for i in sorted({0, B // 2, B - 1}):
+                a1, a2, actx = t1.clone(), t2.clone(), ctx.clone()
+                a1[i], a2[i], actx[i] = row[0][0], row[1][0], row[3][0]
+                mask = torch.rand(B, generator=gen, device="cuda") < 0.5
+                mask[i] = True
+                for got in (fa.fused_attend(a1, a2, row[2], actx, compute_dtype=dtype),
+                            fa.fused_attend(a1, a2, row[2], actx, row_mask=mask, compute_dtype=dtype)):
+                    for x, y in zip(got, want):
+                        if not torch.equal(x[i], y[0]):
+                            fail(f"row invariance {dtype}: the row at index {i} of B={B} differs "
+                                 f"from the row alone")
+                    cases += 1
+    print(f"kernel row invariance N={N} da={da} D={D}: one row at {cases} places (B = 1, 3, 48, "
+          f"96, 108; first, middle, last; unmasked and masked; f32 and bf16): bitwise the same",
+          flush=True)
+
+
+def bench_phase(torch, fa):
+    """The kernel at every timed shape beside what bounds it there: the
+    timing floor (a one-float memset timed the same way), torch's sum over
+    as many floats as the kernel must read, and both again after a flush
+    that reads instead of writes; and, at B=96, the host time to enqueue
+    one call through the wrapper.  Prints one line a shape and returns
+    nothing: a bench, not a check."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    print(f"bench floor: one 4-byte memset timed the same way {time_ms(torch, one.zero_, flush) * 1e3:.1f} us",
+          flush=True)
+    cases = [(B, None, dt) for B in (96, 48, 12, 3) for dt in ("float32", "bfloat16")]
+    cases += [(48, live, "bfloat16") for live in (48, 24, 3)]
+    for B, live, dtype in cases:
+        N, da, D = 196, 512, 512
+        args = attention_inputs(torch, B, N, da, D, gen)
+        mask = None if live is None else torch.arange(B, device="cuda") < live
+        fn = lambda: fa.fused_attend(*args, row_mask=mask, compute_dtype=dtype)  # noqa: E731
+        if (B, live, dtype) == (96, None, "bfloat16"):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            host_us = (time.perf_counter() - t0) * 1e4
+            torch.cuda.synchronize()
+            print(f"bench host enqueue a call through fused_attend: {host_us:.1f} us", flush=True)
+        us = time_ms(torch, fn, flush) * 1e3
+        bound_ms, _ = attention_bound_ms(B, N, da, D) if live is None else masked_bound_ms(B, live, N, da, D)
+        # a yardstick for the bytes, not the function: torch's sum over as
+        # many floats as the live rows' t1 and contexts
+        same_bytes = torch.ones((live or B) * N * (da + D), device="cuda")
+        sum_us = time_ms(torch, same_bytes.sum, flush) * 1e3
+        clean = [time_ms(torch, f, flush, read_flush=True) * 1e3 for f in (fn, same_bytes.sum)]
+        print(f"bench fused_attend {dtype} B={B} live={live if live is not None else B}: {us:.1f} us; "
+              f"bound {bound_ms * 1e3:.1f} us; torch sum over the same bytes {sum_us:.1f} us; "
+              f"after a read flush: kernel {clean[0]:.1f} us, torch sum {clean[1]:.1f} us", flush=True)
 
 
 # -- checkpoint + images -----------------------------------------------------
@@ -684,6 +776,9 @@ def profile_phase(torch, engine, bodies):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bench", action="store_true", help="build and kernel bench only")
+    args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sat_tpu_torch")):
         fail("the sat_tpu_torch package is not beside this script")
@@ -710,8 +805,13 @@ def main() -> int:
 
     build.build_all()
     for name, log in build.build_log.items():
-        print(f"build {name}: {log['seconds']:.1f}s; " + "; ".join(log["ptxas"]), flush=True)
+        print(f"build {name}: {log['seconds']:.1f}s", flush=True)
+        for line in log["ptxas"]:
+            print(f"build {name} ptxas {line}", flush=True)
     phase("build", t0)
+    if args.bench:
+        bench_phase(torch, fa)
+        return 0
 
     t0 = time.perf_counter()
     rows = kernel_phase(torch, fa)

@@ -30,7 +30,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# per kernel: build seconds (0.0 when reused) and ptxas' register report
+# per kernel: build seconds (0.0 when reused) and ptxas' report: each entry
+# function's (mangled) name, then its registers
 build_log: Dict[str, Dict[str, object]] = {}
 
 
@@ -78,7 +79,8 @@ def build_all() -> Dict[str, str]:
             os.replace(tmp, so)
             build_log[name] = {
                 "seconds": time.perf_counter() - t0,
-                "ptxas": [ln.strip() for ln in err.splitlines() if "registers" in ln],
+                "ptxas": [ln.strip() for ln in err.splitlines()
+                          if "registers" in ln or "entry function" in ln],
             }
         if failures:
             raise RuntimeError("\n".join(failures))

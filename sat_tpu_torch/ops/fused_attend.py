@@ -12,12 +12,18 @@ stepped decode) the card runs the kernel's masked body: dead rows come
 out +0.0 whatever their inputs, live rows bitwise equal to the unmasked
 body.  ``fused_attend.launches`` counts unmasked launches and
 ``fused_attend.masked_launches`` masked ones.
+
+:func:`attend_plan` is the kernel's launch plan: the cluster of blocks
+that takes each row, which positions and columns each block owns, and
+how the shared-memory ring is cut.  It depends on (N, da, D) alone, so
+a row's outputs do not depend on the batch it is in.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -123,10 +129,114 @@ def agreement(got, want, contexts, logits, compute_dtype: str) -> dict:
     return dict(rep, ok=True)
 
 
+# Constants of csrc/fused_attend.cu: threads a block (kThreads), ring
+# stages (kStages), shared memory a block may take (kMaxSmem), blocks per
+# row (kMaxCluster: 8, the portable cluster size).  The C entry takes the
+# plan's first six fields and computes the shared-memory bytes itself, by
+# its layout(); ``smem_bytes`` below is the same sum, so that a shape that
+# does not fit raises here, before anything is launched.
+THREADS = 256
+STAGES = 2
+SMEM_LIMIT = 232448
+CLUSTER = 8
+# Floats a ring stage may hold (53 KiB): at the flagship shape two stages
+# and the rest of the layout stay under half an SM's shared memory, so two
+# blocks fit on an SM.
+STAGE_CAP = 13568
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ctx_stride(cw: int, vec_d: bool) -> int:
+    """Floats between two contexts rows in shared memory (ctx_stride in
+    the CUDA source): a block's cw columns padded to an odd number of
+    16-byte (or 4-byte) units, so phase 3's reads of several rows fall in
+    distinct banks."""
+    return 4 * ((cw // 4) | 1) if vec_d else cw | 1
+
+
+class AttendPlan(NamedTuple):
+    """Launch plan of the CUDA kernel for one (N, da, D).
+
+    A row is taken by a cluster of ``cluster`` blocks.  Block s scores the
+    positions :meth:`positions` and sums the columns :meth:`columns` over
+    all N; it streams its t1 rows in chunks of ``t1_chunk_rows`` and its
+    contexts slice in chunks of ``ctx_chunk_rows`` rows through a ring of
+    ``STAGES`` stages of ``stage_floats`` floats.  ``smem_bytes`` is its
+    dynamic shared memory."""
+
+    cluster: int
+    rows_per_block: int
+    cols_per_block: int
+    t1_chunk_rows: int
+    ctx_chunk_rows: int
+    stage_floats: int
+    smem_bytes: int
+
+    def positions(self, s: int, N: int) -> range:
+        n0 = min(N, s * self.rows_per_block)
+        return range(n0, min(N, n0 + self.rows_per_block))
+
+    def columns(self, s: int, D: int) -> range:
+        c0 = min(D, s * self.cols_per_block)
+        return range(c0, min(D, c0 + self.cols_per_block))
+
+    def chunks(self, s: int, N: int, D: int) -> Tuple[int, int]:
+        """(t1 chunks, contexts chunks) block s streams through its ring:
+        the t1 rows of its positions, then all N rows of its columns."""
+        t1 = _ceil_div(len(self.positions(s, N)), self.t1_chunk_rows)
+        ctx = _ceil_div(N, self.ctx_chunk_rows) if len(self.columns(s, D)) else 0
+        return t1, ctx
+
+
+@functools.lru_cache(maxsize=64)
+def attend_plan(N: int, da: int, D: int) -> AttendPlan:
+    """The kernel's plan for rows of N positions, da attention units and
+    D context channels.  It depends on the shapes alone, never on the
+    batch size or the mask: that is what keeps a row's outputs the same
+    in every batch.
+
+    Raises ValueError for shapes the kernel cannot take.  Shared memory
+    holds two ring stages of at most ``STAGE_CAP`` floats, t2 and w2, and
+    the N logits and alphas, within 227 KB a block: so, for da up to
+    ``STAGE_CAP``, N is at most 15488 less da rounded up to 4 (14976 at
+    da = 512).  Phase 3 has one
+    thread a column unit of its block: so D is at most 8192 when it is a
+    multiple of 4 (float4 columns) and 2048 otherwise."""
+    if min(N, da, D) <= 0:
+        raise ValueError(f"attend_plan: N={N}, da={da}, D={D}")
+    cluster = CLUSTER
+    vec_d = D % 4 == 0  # the kernel moves and sums float4 columns when it can
+    nb = _ceil_div(N, cluster)
+    cw = _ceil_div(D // 4, cluster) * 4 if vec_d else _ceil_div(D, cluster)
+    if cw // (4 if vec_d else 1) > THREADS:
+        raise ValueError(f"attend_plan: D={D} gives {cw} columns a block, more than it sums")
+    stride = _ctx_stride(cw, vec_d)
+    stage = _round4(max(min(STAGE_CAP, max(nb * da, N * stride)), da, stride))
+    plan = AttendPlan(
+        cluster=cluster, rows_per_block=nb, cols_per_block=cw,
+        t1_chunk_rows=min(nb, stage // da), ctx_chunk_rows=min(N, stage // stride),
+        stage_floats=stage,
+        smem_bytes=4 * (STAGES * stage + 2 * _round4(da) + 2 * _round4(N)),
+    )
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(
+            f"attend_plan: N={N}, da={da}, D={D} needs {plan.smem_bytes} bytes of shared "
+            f"memory a block, over {SMEM_LIMIT}"
+        )
+    return plan
+
+
 def _launch(lib, t1, t2, w2, contexts, row_mask, out_ctx, out_alpha, mode: int) -> int:
     fn = lib.fused_attend_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
         lib.fused_attend_error_string.argtypes = [ctypes.c_int]
         lib.fused_attend_error_string.restype = ctypes.c_char_p
@@ -137,6 +247,7 @@ def _launch(lib, t1, t2, w2, contexts, row_mask, out_ctx, out_alpha, mode: int) 
         None if row_mask is None else row_mask.data_ptr(),
         out_ctx.data_ptr(), out_alpha.data_ptr(), B, N, da, D, mode,
         torch.cuda.current_stream(t1.device).cuda_stream,
+        *attend_plan(N, da, D)[:6],  # the C entry's Plan: every field but smem_bytes
     )
 
 

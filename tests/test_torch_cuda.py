@@ -33,7 +33,8 @@ def _inputs(B, N, da, D, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "B,N,da,D",
-    [(96, 196, 512, 512), (5, 7, 24, 40), (1, 1, 4, 4), (3, 13, 13, 7), (2, 12000, 8, 300), (4, 49, 512, 2048)],
+    [(96, 196, 512, 512), (5, 7, 24, 40), (1, 1, 4, 4), (3, 13, 13, 7), (2, 12000, 8, 300), (4, 49, 512, 2048),
+     (2, 5, 22, 38)],
 )
 def test_kernel_matches_plain_version(cuda, dtype, B, N, da, D):
     args = _inputs(B, N, da, D)
@@ -71,7 +72,7 @@ def _poison_dead_rows(args, mask):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pattern", ["all", "one", "alternate"])
-@pytest.mark.parametrize("B,N,da,D", [(48, 196, 512, 512), (5, 7, 24, 40), (3, 196, 512, 512)])
+@pytest.mark.parametrize("B,N,da,D", [(48, 196, 512, 512), (5, 7, 24, 40), (3, 196, 512, 512), (2, 5, 22, 38)])
 def test_masked_kernel_matches_plain_version_and_unmasked_kernel(cuda, B, N, da, D, pattern, dtype):
     """Dead rows come out +0.0 whatever their inputs; live rows are
     bitwise the unmasked kernel's on the same inputs and agree with the
@@ -99,6 +100,53 @@ def test_masked_kernel_matches_plain_version_and_unmasked_kernel(cuda, B, N, da,
         fa.reference_logits(t1[mask], t2[mask], w2, dtype), dtype,
     )
     assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,da,D", [(196, 512, 512), (5, 22, 38)])
+def test_row_outputs_do_not_depend_on_the_batch(cuda, N, da, D, dtype):
+    """One row placed at several indices of batches of 1 to 108 rows,
+    beside other rows, with and without a mask (the row live, others
+    dead at random): bitwise the same ctx and alpha every time."""
+    row = _inputs(1, N, da, D, seed=1)
+    want = fa.fused_attend(*row, compute_dtype=dtype)
+    g = torch.Generator().manual_seed(2)
+    for B in (1, 3, 48, 96, 108):
+        others = _inputs(B, N, da, D, seed=B + 3)
+        for i in sorted({0, B // 2, B - 1}):
+            t1, t2, _, ctx = (x.clone() for x in others)
+            t1[i], t2[i], ctx[i] = row[0][0], row[1][0], row[3][0]
+            args = (t1, t2, row[2], ctx)
+            mask = (torch.rand(B, generator=g) < 0.5).to(cuda)
+            mask[i] = True
+            for got in (fa.fused_attend(*args, compute_dtype=dtype),
+                        fa.fused_attend(*args, row_mask=mask, compute_dtype=dtype)):
+                for x, y in zip(got, want):
+                    assert torch.equal(x[i], y[0]), (B, i)
+
+
+def test_launch_refuses_a_plan_it_cannot_run(cuda):
+    """The C entry checks the plan before launching anything: it must
+    cover N and D, its chunks must fit their stage, its cluster must be
+    portable and its layout must fit in shared memory."""
+    from sat_tpu_torch.ops import build
+
+    lib = build.load("fused_attend")
+    args = _inputs(3, 196, 512, 512)
+    out = (torch.empty(3, 512, device=cuda), torch.empty(3, 196, device=cuda))
+    plan = fa.attend_plan(196, 512, 512)
+    fa._launch(lib, *args, None, *out, 0)  # binds the argument types
+    fn = lib.fused_attend_launch
+    ptrs = [x.data_ptr() for x in args] + [None] + [x.data_ptr() for x in out]
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (plan._replace(rows_per_block=plan.rows_per_block - 1),
+                plan._replace(cols_per_block=plan.cols_per_block - 4),
+                plan._replace(stage_floats=plan.stage_floats - 4),
+                plan._replace(stage_floats=60000, t1_chunk_rows=1),
+                plan._replace(cluster=16)):
+        assert fn(*ptrs, 3, 196, 512, 512, 0, stream, *bad[:6]) != 0, bad
+    assert fn(*ptrs, 3, 196, 512, 512, 0, stream, *plan[:6]) == 0
+    torch.cuda.synchronize()
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -7,7 +7,8 @@ Phases, each fatal on failure:
 2. build  — compiles every ``sat_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
 3. kernel — the CUDA ``fused_attend`` against its plain torch version on
    the card, at the flagship decode shapes (buckets 32, 16, 4 and 1 ×
-   beam 3 = 96, 48, 12 and 3 rows, N=196, da=D=512) and two ragged ones,
+   beam 3 = 96, 48, 12 and 3 rows, and eval's batch 20 × beam 3 = 60
+   rows; N=196, da=D=512) and two ragged ones,
    in float32 and bfloat16, with a control that a kernel rounding in the
    wrong place fails; times each with CUDA events beside the kernel's
    memory bound, and prints its launch plan (blocks per row, shared
@@ -47,6 +48,25 @@ Phases, each fatal on failure:
    after).  Then 16 images encoded once go
    through the pool and the monolithic search: bitwise the same words
    and scores.  Last, one full-pool K=8 window under torch.profiler.
+9. eval — the flagship model on a COCO-format fixture written from a
+   seed (48 JPEGs, two captions each from a fixed list; batch 20 and
+   ``max_eval_ann_num=96``, so 5 batches, the last with 4 rows of
+   padding), two checkpoints: ``python -m sat_tpu_torch.cli --config``
+   (phase eval) in a fresh process, then the same with ``--sweep``.
+   results.json has one row for each of the 48 images; the seven printed
+   scores are finite and in range; the unmasked kernel launched once a
+   decode step of every batch and the masked one never (each process
+   counts from 0 and reports its counts, decode steps and the seconds of
+   decode and scoring).
+10. test — ``--phase test`` over 7 JPEGs: results.csv with 7 rows and 7
+   captioned ``*_result.jpg``.
+11. eval reference — the eval path at the small float32 size through
+   ``runtime.evaluate`` (attention maps on) and ``decode_dataset``, on
+   the card and on the CPU: the same captions and scores, prob and
+   alphas within 1e-4; the card's run launched the kernel, the CPU's not.
+12. eval steady — ``decode_dataset`` at full width over 400 JPEGs of
+   480 px (20 batches of 20): images/s of two warm passes, then the
+   card's busy share of one pass under torch.profiler.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or
@@ -211,8 +231,8 @@ def masked_phase(torch, fa):
     return rows, max(errs)
 
 
-KERNEL_SHAPES = ((96, 196, 512, 512), (48, 196, 512, 512), (12, 196, 512, 512), (5, 7, 24, 40),
-                 (2, 5, 22, 38), (3, 196, 512, 512))
+KERNEL_SHAPES = ((96, 196, 512, 512), (60, 196, 512, 512), (48, 196, 512, 512), (12, 196, 512, 512),
+                 (5, 7, 24, 40), (2, 5, 22, 38), (3, 196, 512, 512))
 
 
 def kernel_phase(torch, fa):
@@ -331,9 +351,10 @@ def bench_phase(torch, fa):
 
 # -- checkpoint + images -----------------------------------------------------
 
-def write_checkpoint(np, config, save_dir: str, step: int, seed: int) -> str:
+def write_checkpoint(np, config, save_dir: str, step: int, seed: int, bias_shift=None) -> str:
     """Random weights in the JAX package's flat format: glorot-uniform
-    convs, uniform(±scale) dense kernels and embedding, zero biases."""
+    convs, uniform(±scale) dense kernels and embedding, zero biases but
+    the output biases ``bias_shift`` ({word index: shift}) names."""
     from sat_tpu_torch.data.vocabulary import vocab_fingerprint
     from sat_tpu_torch.resilience import lineage
     from sat_tpu_torch.train.checkpoint import param_shapes
@@ -350,6 +371,8 @@ def write_checkpoint(np, config, save_dir: str, step: int, seed: int) -> str:
         else:
             s = config.fc_kernel_initializer_scale
             flat[name] = rng.uniform(-s, s, shape).astype(np.float32)
+    for index, shift in (bias_shift or {}).items():
+        flat["params/decoder/decode/fc_2/bias"][index] += shift
     flat["global_step"] = np.asarray(step, np.int32)
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, f"{step}.npz")
@@ -359,11 +382,12 @@ def write_checkpoint(np, config, save_dir: str, step: int, seed: int) -> str:
     return path
 
 
-def write_vocabulary(np, path: str, size: int) -> None:
+def write_vocabulary(np, path: str, size: int, words=()) -> None:
+    """``<start>``, '.', then ``words``, then fillers up to ``size``."""
     from sat_tpu_torch.data.vocabulary import Vocabulary
 
     v = Vocabulary(size)
-    v.words = ["<start>", "."] + [f"w{i}" for i in range(2, size)]
+    v.words = (["<start>", "."] + list(words) + [f"w{i}" for i in range(2, size)])[:size]
     v.word2idx = {w: i for i, w in enumerate(v.words)}
     v.word_frequencies = -np.log1p(np.arange(size, dtype=np.float64))
     v.save(path)
@@ -775,6 +799,332 @@ def profile_phase(torch, engine, bodies):
               flush=True)
 
 
+# -- eval and test phases ------------------------------------------------------
+
+# The eval fixture's ground truth: two captions an image, cycled.
+EVAL_CAPTIONS = (
+    "a man riding a horse on the beach.", "a group of people standing around a kitchen.",
+    "two dogs playing with a red ball in the grass.", "a plate of food with rice and vegetables.",
+    "a bus driving down a city street.", "a cat sitting on top of a wooden table.",
+    "a woman holding an umbrella in the rain.", "a young boy throwing a frisbee in the park.",
+    "several boats floating in the harbor near the dock.", "a train traveling down the tracks.",
+    "a bird perched on a branch of a tree.", "a pizza with cheese and tomatoes on a plate.",
+)
+METRICS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr")
+
+# Runs the port's CLI in a fresh process, counting what the eval path
+# launched and how many batches and decode steps it ran, and timing the
+# decode and the scoring; prints the tally as its last line.
+CLI_HARNESS = r"""
+import json, sys, time
+from sat_tpu_torch import cli, runtime
+from sat_tpu_torch.evalcap.eval import CocoEvalCap
+from sat_tpu_torch.ops import beam_search as bs
+from sat_tpu_torch.ops import fused_attend as fa
+
+tally = {"batches": 0, "steps": 0, "decode_s": [], "score_s": []}
+sealed, decode_batch = bs._sealed, runtime.decode_batch
+
+def counted_sealed(*a):  # called once per decode step of the search
+    tally["steps"] += 1
+    return sealed(*a)
+
+def counted_batch(*a, **k):
+    tally["batches"] += 1
+    return decode_batch(*a, **k)
+
+def timed(fn, key):
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            tally[key].append(time.perf_counter() - t0)
+    return run
+
+bs._sealed = counted_sealed
+runtime.decode_batch = counted_batch
+runtime.decode_dataset = timed(runtime.decode_dataset, "decode_s")
+CocoEvalCap.evaluate = timed(CocoEvalCap.evaluate, "score_s")
+fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+rc = cli.main(sys.argv[1:])
+tally.update(launches=fa.fused_attend.launches, masked=fa.fused_attend.masked_launches)
+print("chip_smoke counts " + json.dumps(tally), flush=True)
+sys.exit(rc)
+"""
+
+
+def write_coco_fixture(np, root: str, n_images: int, seed: int, size: int = 256):
+    """``n_images`` JPEGs of ``size`` px made with numpy and a COCO caption
+    JSON, two captions an image; returns (image dir, caption file)."""
+    image_dir = os.path.join(root, "images")
+    os.makedirs(image_dir, exist_ok=True)
+    images, annotations = [], []
+    for i, body in enumerate(jpegs(np, n_images, size, seed)):
+        name = f"COCO_smoke_{i:012d}.jpg"
+        with open(os.path.join(image_dir, name), "wb") as f:
+            f.write(body)
+        images.append({"id": i + 1, "file_name": name})
+        for j in range(2):
+            annotations.append({"id": 1000 + 2 * i + j, "image_id": i + 1,
+                                "caption": EVAL_CAPTIONS[(i + j) % len(EVAL_CAPTIONS)]})
+    caption_file = os.path.join(root, "captions.json")
+    with open(caption_file, "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+    return image_dir, caption_file
+
+
+def caption_words():
+    from sat_tpu_torch.data.tokenizer import tokenize
+
+    words = []
+    for c in EVAL_CAPTIONS:
+        words += [w for w in tokenize(c) if w != "." and w not in words]
+    return words
+
+
+def run_cli(args, where: str, timeout: int = 600):
+    """``sat_tpu_torch.cli`` with ``args`` in a fresh process; returns
+    (its tally, its standard output).  Fails on a non-zero exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CLI_HARNESS, *args], cwd=here,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{where}: python -m sat_tpu_torch.cli {' '.join(args)} exited {out.returncode}:\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    last = out.stdout.strip().splitlines()[-1]
+    if not last.startswith("chip_smoke counts "):
+        fail(f"{where}: no tally line:\n{out.stdout[-2000:]}")
+    tally = json.loads(last[len("chip_smoke counts "):])
+    tally["wall_s"] = wall
+    return tally, out.stdout
+
+
+def check_tally(tally, where: str, batches: int):
+    """The kernel ran once a decode step, on every batch, and the masked
+    body never."""
+    if tally["batches"] != batches:
+        fail(f"{where}: {tally['batches']} batches decoded, expected {batches}")
+    if not batches <= tally["steps"] <= 20 * batches:
+        fail(f"{where}: {tally['steps']} decode steps over {batches} batches")
+    if tally["launches"] != tally["steps"]:
+        fail(f"{where}: fused_attend launched {tally['launches']} times over {tally['steps']} decode "
+             f"steps ({batches} batches): the kernel did not run once a step")
+    if tally["masked"] != 0:
+        fail(f"{where}: the masked fused_attend ran {tally['masked']} times on the monolithic path")
+
+
+def printed_scores(np, stdout: str, where: str):
+    """The last ``name: value`` line of each metric; each finite, BLEU,
+    METEOR and ROUGE_L in [0, 1], CIDEr >= 0."""
+    scores = {}
+    for line in stdout.splitlines():
+        name, _, value = line.partition(": ")
+        if name in METRICS:
+            scores[name] = float(value)
+    if sorted(scores) != sorted(METRICS):
+        fail(f"{where}: printed scores {scores}, expected {METRICS}")
+    for k, v in scores.items():
+        if not np.isfinite(v) or v < 0 or (k != "CIDEr" and v > 1):
+            fail(f"{where}: {k} = {v} out of range")
+    return scores
+
+
+def eval_config(tmp: str):
+    """The flagship model (``flagship_config``) on the eval fixture: batch
+    20, 96 annotation ids over 48 images, so 5 batches, the last with 16
+    images and 4 rows of padding."""
+    image_dir, caption_file = os.path.join(tmp, "eval", "images"), os.path.join(tmp, "eval", "captions.json")
+    return flagship_config(tmp).replace(
+        phase="eval", save_dir=os.path.join(tmp, "eval", "models"),
+        vocabulary_file=os.path.join(tmp, "eval", "vocabulary.csv"),
+        eval_image_dir=image_dir, eval_caption_file=caption_file,
+        eval_result_file=os.path.join(tmp, "eval", "results.json"),
+        eval_result_dir=os.path.join(tmp, "eval", "results"),
+        batch_size=20, max_eval_ann_num=96,
+        test_image_dir=os.path.join(tmp, "test", "images"),
+        test_result_dir=os.path.join(tmp, "test", "results"),
+        test_result_file=os.path.join(tmp, "test", "results.csv"),
+    )
+
+
+def eval_phase(np, config, card: str):
+    """``--phase eval`` on the newest checkpoint, then ``--sweep`` over
+    both, each through the CLI in its own process.  Returns the B1
+    launches of the two runs."""
+    write_coco_fixture(np, os.path.dirname(config.eval_image_dir), 48, SEED + 40)
+    words = caption_words()
+    write_vocabulary(np, config.vocabulary_file, config.vocabulary_size, words)
+    # the ground truth's words favoured, so captions share words with it
+    # and every metric has matches to count
+    favour = {i: 4.0 for i in range(2, 2 + len(words))}
+    for step, seed in ((1000, SEED + 41), (2000, SEED + 42)):
+        write_checkpoint(np, config, config.save_dir, step=step, seed=seed, bias_shift=favour)
+    path = os.path.join(os.path.dirname(config.save_dir), "eval.json")
+    config.save(path)
+
+    tally, stdout = run_cli(["--config", path], "eval")
+    check_tally(tally, "eval", batches=5)
+    scores = printed_scores(np, stdout, "eval")
+    with open(config.eval_result_file) as f:
+        rows = json.load(f)
+    if sorted(r["image_id"] for r in rows) != list(range(1, 49)):
+        fail(f"eval: results.json has {len(rows)} rows, not one for each of the 48 images")
+    decode_s, score_s = tally["decode_s"][0], tally["score_s"][0]
+    print(f"eval flagship bf16 on {card}: 48 images (96 ids, 5 batches of 20) in {tally['wall_s']:.2f}s "
+          f"(process start to exit); decode {decode_s:.3f}s ({48 / decode_s:.1f} images/s, first use "
+          f"in the process), scoring {score_s:.3f}s; {tally['steps']} decode steps, fused_attend "
+          f"launches {tally['launches']}, masked {tally['masked']}", flush=True)
+    print(f"eval scores (random weights): {scores}", flush=True)
+    print(f"eval sample caption (random weights): {rows[0]}", flush=True)
+
+    sweep, stdout = run_cli(["--config", path, "--sweep"], "eval sweep")
+    check_tally(sweep, "eval sweep", batches=10)
+    steps = [line.split(":")[0] for line in stdout.splitlines() if line.startswith("step ")]
+    if steps != ["step 1000", "step 2000"]:
+        fail(f"eval sweep: printed {steps}, expected steps 1000 and 2000")
+    for step in (1000, 2000):
+        if not os.path.exists(os.path.join(config.save_dir, f"{step}.txt")):
+            fail(f"eval sweep: no {step}.txt score dump")
+    warm = sweep["decode_s"][1]
+    print(f"eval sweep on {card}: 2 checkpoints in {sweep['wall_s']:.2f}s; decode {sweep['decode_s'][0]:.3f} / "
+          f"{warm:.3f}s ({48 / warm:.1f} images/s on the second, warm), scoring "
+          f"{sweep['score_s'][0]:.3f} / {sweep['score_s'][1]:.3f}s; fused_attend launches "
+          f"{sweep['launches']} over {sweep['steps']} steps", flush=True)
+    return tally["launches"] + sweep["launches"]
+
+
+def test_phase(np, config, card: str):
+    """``--phase test`` over 7 JPEGs: results.csv with 7 rows and a
+    captioned JPEG for each.  Returns the B1 launches."""
+    import csv
+
+    os.makedirs(config.test_image_dir, exist_ok=True)
+    for i, body in enumerate(jpegs(np, 7, 300, SEED + 43)):
+        with open(os.path.join(config.test_image_dir, f"photo_{i}.jpg"), "wb") as f:
+            f.write(body)
+    path = os.path.join(os.path.dirname(config.test_image_dir), "test.json")
+    config.replace(phase="test").save(path)
+    tally, _ = run_cli(["--config", path], "test")
+    check_tally(tally, "test", batches=1)
+    with open(config.test_result_file, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 7 or not all(r["caption"] and float(r["prob"]) >= 0 for r in rows):
+        fail(f"test: results.csv has {len(rows)} rows, expected 7 captioned: {rows}")
+    rendered = sorted(n for n in os.listdir(config.test_result_dir) if n.endswith("_result.jpg"))
+    if rendered != [f"photo_{i}_result.jpg" for i in range(7)]:
+        fail(f"test: captioned JPEGs {rendered}")
+    print(f"test flagship bf16 on {card}: 7 JPEGs in {tally['wall_s']:.2f}s (decode "
+          f"{tally['decode_s'][0]:.3f}s), results.csv 7 rows, 7 captioned JPEGs; fused_attend "
+          f"launches {tally['launches']} over {tally['steps']} steps", flush=True)
+    return tally["launches"]
+
+
+def eval_reference_phase(np, config):
+    """The eval path at the small float32 size through ``runtime.evaluate``
+    (attention maps on) and ``decode_dataset``, on the card and on the
+    CPU: identical captions and scores, prob within 1e-4 relative, alphas
+    within 1e-4."""
+    from sat_tpu_torch import runtime
+    from sat_tpu_torch.data.dataset import prepare_eval_data
+    from sat_tpu_torch.ops import fused_attend as fa
+
+    small = config.replace(
+        image_size=32, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16,
+        dim_attend_layer=16, dim_decode_layer=32, vocabulary_size=50, compute_dtype="float32",
+        save_attention_maps=True, save_dir=os.path.join(os.path.dirname(config.save_dir), "small"),
+        vocabulary_file=os.path.join(os.path.dirname(config.save_dir), "small.csv"),
+    )
+    write_vocabulary(np, small.vocabulary_file, small.vocabulary_size, caption_words())
+    # the terminator's logit lowered: full-length captions, not ""
+    path = write_checkpoint(np, small, small.save_dir, step=1, seed=SEED + 44, bias_shift={1: -2.0})
+    res, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg = small.replace(eval_result_file=os.path.join(small.save_dir, f"{dev}.json"),
+                            eval_result_dir=os.path.join(small.save_dir, dev))
+        before = fa.fused_attend.launches
+        scores = runtime.evaluate(cfg, model_file=path, device=dev)
+        launched[dev] = fa.fused_attend.launches - before
+        with open(cfg.eval_result_file) as f:
+            captions = json.load(f)
+        state = runtime.setup_state(cfg, model_file=path, device=dev)
+        _, dataset, vocab = prepare_eval_data(cfg)
+        rows = runtime.decode_dataset(cfg, state, dataset, vocab, device=dev)
+        res[dev] = (scores, captions, rows, sorted(os.listdir(cfg.eval_result_dir)))
+    (gs, gc, gr, gf), (cs, cc, cr, cf) = res["cuda"], res["cpu"]
+    if launched["cuda"] < 2 or launched["cpu"] != 0:
+        fail(f"eval reference: fused_attend launched {launched['cuda']} times on cuda, "
+             f"{launched['cpu']} on cpu")
+    if gc != cc:
+        fail(f"eval reference: captions differ between cuda and cpu:\n{gc[:3]}\n{cc[:3]}")
+    if gs != cs:
+        fail(f"eval reference: scores differ between cuda and cpu: {gs} vs {cs}")
+    if gf != cf or not any(n.endswith("_attention.jpg") for n in gf):
+        fail(f"eval reference: attention artifacts differ: {gf} vs {cf}")
+    prob = max(abs(a["prob"] - b["prob"]) / b["prob"] for a, b in zip(gr, cr))
+    alpha = max(float(np.abs(a["alphas"] - b["alphas"]).max()) for a, b in zip(gr, cr))
+    if not (prob <= 1e-4 and alpha <= 1e-4):
+        fail(f"eval reference: prob rel err {prob:.3e} or alpha err {alpha:.3e} over 1e-4")
+    print(f"eval reference float32 small model, {len(gc)} images: cuda == cpu captions and scores "
+          f"({gs}), prob max rel err {prob:.3e} (tol 1e-4), alpha max abs err {alpha:.3e} (tol 1e-4); "
+          f"sample caption {gc[0]}", flush=True)
+
+
+STEADY_IMAGES = 400   # 20 eval batches of 20
+STEADY_SIZE = 480     # px a side: COCO's photos are 640 x 480
+
+
+def eval_steady_phase(torch, np, config, card: str):
+    """``decode_dataset`` as ``runtime.evaluate`` runs it (uint8 images
+    from the prefetching loader, the pinned host→device feed, the mean
+    subtracted on the card), over a fixture of 400 JPEGs: one pass to
+    settle cuDNN and the allocator, two timed passes (images/s over all
+    20 batches, the loader's fill before the first included), then one
+    pass under torch.profiler: the card's busy share of its wall time and
+    the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_tpu_torch import runtime
+    from sat_tpu_torch.data.dataset import prepare_eval_data
+
+    root = os.path.join(os.path.dirname(os.path.dirname(config.eval_image_dir)), "steady")
+    image_dir, caption_file = write_coco_fixture(np, root, STEADY_IMAGES, SEED + 45, size=STEADY_SIZE)
+    config = config.replace(eval_image_dir=image_dir, eval_caption_file=caption_file,
+                            max_eval_ann_num=None)
+    state = runtime.setup_state(config, load=True, device="cuda")
+    _, dataset, vocab = prepare_eval_data(config)
+    batches = dataset.num_batches
+
+    def decode():
+        t0 = time.perf_counter()
+        rows = runtime.decode_dataset(config, state, dataset, vocab, device="cuda")
+        torch.cuda.synchronize()
+        if len(rows) != STEADY_IMAGES:
+            fail(f"eval steady: {len(rows)} rows for {STEADY_IMAGES} images")
+        return time.perf_counter() - t0
+
+    decode()
+    walls = [decode(), decode()]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = decode()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy == 0:
+        fail("eval steady: torch.profiler recorded no device time")
+    rates = ", ".join(f"{w:.3f}s = {STEADY_IMAGES / w:.1f} images/s" for w in walls)
+    print(f"eval steady flagship bf16 on {card}: decode_dataset over {STEADY_IMAGES} JPEGs of "
+          f"{STEADY_SIZE} px ({batches} batches of {config.batch_size}, {config.num_data_workers} decode "
+          f"threads), two warm passes: {rates}", flush=True)
+    print(f"profile eval steady on {card}: wall {profiled:.3f}s under the profiler, device busy "
+          f"{busy:.3f}s ({busy / profiled:.1%} of that wall, {busy / min(walls):.1%} of the faster "
+          f"unprofiled pass)", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"profile eval kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", action="store_true", help="build and kernel bench only")
@@ -838,7 +1188,27 @@ def main() -> int:
             torch, np, fa, config.replace(serve_mode="continuous"), card, bodies, batch_first
         )
         phase("continuous", t0)
+        t0 = time.perf_counter()
+        config = eval_config(tmp)
+        eval_launches = eval_phase(np, config, card)
+        phase("eval", t0)
+        t0 = time.perf_counter()
+        test_launches = test_phase(np, config, card)
+        phase("test", t0)
+        t0 = time.perf_counter()
+        eval_reference_phase(np, config)
+        phase("eval reference", t0)
+        t0 = time.perf_counter()
+        eval_steady_phase(torch, np, config, card)
+        phase("eval steady", t0)
 
+    eval_row = next(r for r in rows if (r["B"], r["dtype"]) == (60, "bfloat16"))
+    print(f"kernel fused_attend bf16 B=60 (eval: batch 20 x beam 3) on {card}: {eval_row['ms'] * 1e3:.1f} us, "
+          f"bound {eval_row['bound_ms'] * 1e3:.1f} us ({eval_row['bound_by']}, "
+          f"{eval_row['bound_ms'] / eval_row['ms']:.1%} of it), plain {eval_row['plain_ms'] * 1e3:.1f} us",
+          flush=True)
+    print(f"fused_attend launches on the main paths: batch serve {launches}, eval and sweep "
+          f"{eval_launches}, test {test_launches}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["dtype"]) == (96, "bfloat16"))
     masked_row = next(r for r in masked_rows if r["live"] == 48)
     print(json.dumps({"kernels": [{
@@ -846,7 +1216,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:65",
-        "launches": launches,
+        "launches": launches + eval_launches + test_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],

@@ -4,7 +4,9 @@ The port of ``sat_tpu`` (the JAX package, which stays the reference) to an
 NVIDIA H100.  It imports ``torch``, never ``jax``, and nothing of
 ``sat_tpu``.  Ported so far: caption serving in batch and continuous mode —
 VGG16 encoder, soft-attention LSTM decoder, the monolithic beam search and
-the stepped decode over a paged slot pool, the HTTP server — with the
+the stepped decode over a paged slot pool, the HTTP server — and the eval
+and test phases (``runtime``: results.json scored by the COCO caption
+metrics of ``evalcap``, results.csv and captioned JPEGs), with the
 attention step (unmasked and row-masked) as a hand-written CUDA kernel
 (``ops.fused_attend``).
 
@@ -18,6 +20,7 @@ _EXPORTS = {
     "Vocabulary": ".data.vocabulary",
     "encode": ".models.captioner",
     "beam_search": ".ops.beam_search",
+    "greedy_decode": ".ops.beam_search",
     "fused_attend": ".ops.fused_attend",
     "params_from_flat": ".train.checkpoint",
     "params_to_flat": ".train.checkpoint",
@@ -26,6 +29,9 @@ _EXPORTS = {
     "PagedSlotPool": ".serve.slot_pool",
     "CaptionServer": ".serve.server",
     "serve": ".serve.server",
+    "decode_dataset": ".runtime",
+    "evaluate": ".runtime",
+    "test": ".runtime",
 }
 
 __all__ = sorted(_EXPORTS)

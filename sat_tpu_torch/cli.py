@@ -1,11 +1,14 @@
-"""Command-line driver: ``python -m sat_tpu_torch.cli --phase serve``.
+"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase serve|eval|test``.
 
-The port of ``sat_tpu.cli`` for the phases ported so far — only
-``serve``, which runs on the card.  It takes the JAX CLI's flags for that
-phase (``--config``, ``--set key=value``, ``--port``, ``--max_batch``,
-``--max_wait_ms``, ``--serve_mode``, ``--serve_decode_depth``,
-``--model_file``), so one config file and one override list drive both
-packages.  Any other phase exits with "not ported yet".
+The port of ``sat_tpu.cli`` for the phases ported so far, which run on
+the card.  It takes the JAX CLI's flags for them (``--config``, ``--set
+key=value``, ``--model_file``, ``--load``, ``--load_cnn`` (which raises:
+not ported), ``--beam_size``, ``--shard_cache``, ``--sweep``; for serve ``--port``, ``--max_batch``,
+``--max_wait_ms``, ``--serve_mode``, ``--serve_decode_depth``), so one
+config file and one override list drive both packages.  Eval prints each
+score as ``name: value``; ``--sweep`` scores every checkpoint under
+save_dir and prints a ``step N: ...`` line for each.  Any other phase
+exits with "not ported yet".
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import List, Optional
 
 from .config import Config
 
-PORTED_PHASES = ("serve",)
+PORTED_PHASES = ("serve", "eval", "test")
 
 # the reference's misspelled config keys, accepted like the JAX CLI does
 _REFERENCE_KEY_ALIASES = {
@@ -50,7 +53,7 @@ def _parse_override(config: Config, key: str, raw: str):
 
 
 def build_config(argv: Optional[List[str]] = None):
-    """Returns (Config, model_file)."""
+    """Returns (Config, cli options: model_file, load, sweep)."""
     p = argparse.ArgumentParser(
         prog="sat_tpu_torch", description="Show, Attend and Tell on PyTorch/CUDA"
     )
@@ -60,7 +63,26 @@ def build_config(argv: Optional[List[str]] = None):
         help="default: train, or the --config file's phase when one is given",
     )
     p.add_argument("--config", default=None, help="JSON Config file (either package's)")
+    p.add_argument(
+        "--load", action="store_true",
+        help="resume from the latest checkpoint in save_dir",
+    )
     p.add_argument("--model_file", default=None, help="explicit checkpoint file")
+    p.add_argument(
+        "--load_cnn", action="store_true",
+        help="import a pretrained CNN (not ported yet: raises)",
+    )
+    p.add_argument("--beam_size", type=int, default=None)
+    p.add_argument(
+        "--shard_cache", default=None, choices=["auto", "on", "off"],
+        help="preprocessed-image shard cache: the port decodes live, so "
+             "'auto' and 'off' run and 'on' is not ported yet",
+    )
+    p.add_argument(
+        "--sweep", action="store_true",
+        help="eval phase: score every checkpoint under save_dir, writing "
+             "<step>.txt dumps",
+    )
     p.add_argument("--port", type=int, default=None, help="serve: HTTP port (0 = ephemeral)")
     p.add_argument("--max_batch", type=int, default=None, help="serve: most requests per batch")
     p.add_argument(
@@ -82,12 +104,25 @@ def build_config(argv: Optional[List[str]] = None):
         help="override any Config field, repeatable",
     )
     args = p.parse_args(argv)
+    if args.sweep and (args.model_file or args.load):
+        raise SystemExit(
+            "--sweep scores every checkpoint under save_dir; it conflicts "
+            "with --model_file/--load"
+        )
     if args.config:
+        # file values are the base; only explicit flags override them
         config = Config.load(args.config)
         if args.phase is not None:
             config = config.replace(phase=args.phase)
+        if args.beam_size is not None:
+            config = config.replace(beam_size=args.beam_size)
     else:
-        config = Config(phase=args.phase if args.phase is not None else "train")
+        config = Config(
+            phase=args.phase if args.phase is not None else "train",
+            beam_size=args.beam_size if args.beam_size is not None else 3,
+        )
+    if args.shard_cache is not None:
+        config = config.replace(shard_cache=args.shard_cache)
     if args.port is not None:
         config = config.replace(serve_port=args.port)
     if args.max_batch is not None:
@@ -109,19 +144,52 @@ def build_config(argv: Optional[List[str]] = None):
         overrides[key] = _parse_override(config, key, raw)
     if overrides:
         config = config.replace(**overrides)
-    return config.apply_env_paths(), args.model_file
+    config = config.apply_env_paths()
+    # checked against the resolved phase, so `--sweep --config <eval cfg>`
+    # works without restating --phase
+    if args.sweep and config.phase != "eval":
+        raise SystemExit("--sweep only applies to --phase=eval")
+    return config, {
+        "model_file": args.model_file, "load": args.load, "load_cnn": args.load_cnn,
+        "sweep": args.sweep,
+    }
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    config, model_file = build_config(argv)
+    config, cli = build_config(argv)
     if config.phase not in PORTED_PHASES:
         raise SystemExit(
             f"sat_tpu_torch: phase {config.phase!r} is not ported yet "
             f"(ported: {', '.join(PORTED_PHASES)}); use python -m sat_tpu.cli"
         )
-    from .serve.server import serve
+    if config.phase == "serve":
+        from .serve.server import serve
 
-    return serve(config, model_file=model_file)
+        return serve(config, model_file=cli["model_file"])
+
+    from . import runtime
+    from .utils import fileio
+
+    fileio.configure_retries(config.io_retries, config.io_retry_base_s)
+    if config.phase == "eval":
+        if cli["sweep"]:
+            sweep = runtime.evaluate_sweep(config)
+            for step in sorted(sweep):
+                line = "  ".join(f"{k}={v:.4f}" for k, v in sweep[step].items())
+                print(f"step {step}: {line}")
+            return 0
+        state = runtime.setup_state(
+            config, load=True, model_file=cli["model_file"], load_cnn=cli["load_cnn"]
+        )
+        scores = runtime.evaluate(config, state=state)
+        for k, v in scores.items():
+            print(f"{k}: {v:.4f}")
+    else:
+        state = runtime.setup_state(
+            config, load=True, model_file=cli["model_file"], load_cnn=cli["load_cnn"]
+        )
+        runtime.test(config, state=state)
+    return 0
 
 
 if __name__ == "__main__":

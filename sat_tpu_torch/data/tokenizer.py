@@ -9,7 +9,7 @@ needs no native library.
 from __future__ import annotations
 
 import re
-from typing import List
+from typing import Iterable, List
 
 # Treebank contraction suffixes: don't -> do n't, it's -> it 's, etc.
 _CONTRACTIONS = re.compile(r"([^' ])('ll|'re|'ve|n't|'s|'m|'d)\b", re.IGNORECASE)
@@ -63,3 +63,22 @@ def tokenize_pure(text: str, lower: bool = True) -> List[str]:
 def tokenize(text: str, lower: bool = True) -> List[str]:
     """Tokenize one sentence into Treebank-style word tokens."""
     return tokenize_pure(text, lower=lower)
+
+
+# Punctuation tokens the eval pipeline drops after tokenization (the
+# PTBTokenizer wrapper of the COCO caption toolkit).
+PUNCTUATIONS = frozenset({
+    "''", "'", "``", "`", "-LRB-", "-RRB-", "-LCB-", "-RCB-",
+    ".", "?", "!", ",", ":", "-", "--", "...", ";",
+})
+
+
+def tokenize_no_punct(text: str, lower: bool = True) -> List[str]:
+    """Tokenize and drop punctuation tokens: the metric-eval flavour."""
+    return [t for t in tokenize_pure(text, lower=lower) if t not in PUNCTUATIONS]
+
+
+def tokenize_captions(captions: Iterable[str]) -> List[str]:
+    """Each caption as one space-joined line of punctuation-free lowercase
+    tokens, as the eval stack scores them."""
+    return [" ".join(tokenize_no_punct(c)) for c in captions]

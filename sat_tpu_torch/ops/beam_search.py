@@ -310,6 +310,23 @@ def beam_search(
     )
 
 
+def greedy_decode(
+    params,
+    config: Config,
+    contexts: torch.Tensor,
+    eos_id: int,
+    max_len: Optional[int] = None,
+    valid_size: Optional[int] = None,
+    return_steps: bool = False,
+) -> BeamResult:
+    """Argmax decoding: the beam search at ``beam_size=1``."""
+    return beam_search(
+        params, config, contexts, eos_id,
+        beam_size=1, max_len=max_len, valid_size=valid_size,
+        return_steps=return_steps,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Stepped decode over a slot pool: continuous serving's path
 # ---------------------------------------------------------------------------

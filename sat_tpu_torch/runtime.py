@@ -1,0 +1,493 @@
+"""Eval and test runtimes — the port of the decoding half of ``sat_tpu.runtime``.
+
+* ``evaluate``: beam-search every image of the eval split, write
+  ``results.json`` and score it with BLEU-1..4, METEOR, ROUGE-L and CIDEr;
+  ``evaluate_sweep`` scores every checkpoint under ``save_dir``;
+* ``test``: caption every JPEG of a directory into ``results.csv`` and
+  captioned JPEGs;
+* with ``save_attention_maps``, both also write per-image attention panels
+  and ``attn.jsonl`` / ``attn.html``.
+
+``decode_dataset`` drives them: the prefetching JPEG loader, a host→device
+feed one batch ahead (pinned host batches, ``non_blocking`` copies), then
+per batch ``captioner.encode`` and the monolithic ``beam_search`` (whose
+attention step is the CUDA ``fused_attend`` on the card).  Batch n+1 is
+dispatched before batch n is drained, as in the JAX package; here the
+search syncs with the host once a step, so the two do not overlap yet.
+Entry points run on the card unless the caller passes ``device="cpu"``.
+
+Not ported yet, and raising ``NotImplementedError`` (:func:`check_ported`):
+mesh and context-parallel decode, ``shard_cache="on"`` (``"auto"`` and
+``"off"`` decode live: a cached row is bitwise the live decode's),
+``telemetry``, ``blackbox`` and the profiler window (``profile_dir``), a
+``.npy`` reference checkpoint, ``load_cnn``, and the random
+initialization of a state that loads no checkpoint.  The JAX package's quarantine is not ported: a JPEG
+that cannot be decoded raises ``PrefetchDecodeError``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import Config
+from .data.dataset import DataSet, prepare_eval_data, prepare_test_data
+from .data.images import ImageLoader, PrefetchLoader
+from .data.vocabulary import Vocabulary, vocab_fingerprint
+from .device import resolve_device
+from .evalcap.eval import CocoEvalCap
+from .models.captioner import check_encoder, encode
+from .ops.beam_search import BeamResult, beam_search
+from .resilience import lineage
+from .train.checkpoint import (
+    ServingState, check_vocab, compute_params, load_flat, state_from_flat, to_device, walk_back,
+)
+from .utils.fileio import atomic_write
+
+
+def check_ported(config: Config) -> None:
+    """Raise on eval/test knobs whose subsystem is not ported yet."""
+    check_encoder(config)
+    if int(np.prod(config.mesh_shape)) > 1 or config.context_parallel > 1:
+        raise NotImplementedError(
+            f"mesh decode (mesh_shape={tuple(config.mesh_shape)}, context_parallel="
+            f"{config.context_parallel}) is not ported to sat_tpu_torch yet (only one device)"
+        )
+    # the other telemetry knobs act only with telemetry on, in both packages
+    unported = {
+        "shard_cache": (config.shard_cache, ("auto", "off")),
+        "telemetry": (config.telemetry, (False,)),
+        "blackbox": (config.blackbox, (False,)),
+        "profile_dir": (config.profile_dir, ("",)),
+    }
+    for name, (value, ported) in unported.items():
+        if value not in ported:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to sat_tpu_torch yet (only "
+                f"{' or '.join(repr(p) for p in ported)})"
+            )
+
+
+# ---------------------------------------------------------------------------
+# input feed
+# ---------------------------------------------------------------------------
+
+
+def make_loader(config: Config, dataset: DataSet) -> PrefetchLoader:
+    """The host-side input pipeline of a dataset: live JPEG decode in a
+    thread pool, ``prefetch_depth`` batches ahead."""
+    return PrefetchLoader(
+        dataset,
+        ImageLoader(size=config.image_size, raw=config.device_preprocess),
+        num_workers=config.num_data_workers,
+        prefetch_depth=config.prefetch_depth,
+    )
+
+
+def device_prefetch(loader, device: torch.device):
+    """Host→device feed one batch ahead: the copy of batch k+1 is enqueued
+    before batch k is handed on.  On the card each host batch is pinned
+    and copied with ``non_blocking``, so the copy overlaps the device's
+    work on the batch before it.  'images' becomes a device tensor;
+    'files' passes through."""
+    pin = device.type == "cuda"
+
+    def put(batch):
+        images = torch.from_numpy(batch["images"])
+        if pin:
+            images = images.pin_memory()
+        return {**batch, "images": images.to(device, non_blocking=pin)}
+
+    pending = None
+    it = iter(loader)
+    try:
+        for batch in it:
+            ready, pending = pending, put(batch)
+            if ready is not None:
+                yield ready
+        if pending is not None:
+            yield pending
+    finally:
+        it.close()
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+
+def setup_state(
+    config: Config,
+    load: bool = False,
+    model_file: Optional[str] = None,
+    load_cnn: bool = False,
+    device=None,
+) -> ServingState:
+    """The checkpoint's params on ``device`` (the card unless "cpu").
+
+    An explicit ``model_file`` is loaded as-is; otherwise the newest
+    checkpoint under ``save_dir`` that verifies and loads.  The configured
+    vocabulary must match the one the checkpoint's sidecar attests."""
+    dev = resolve_device(device)
+    if load_cnn:
+        raise NotImplementedError("load_cnn (a pretrained CNN import) is not ported to sat_tpu_torch yet")
+    if not (load or model_file):
+        raise NotImplementedError(
+            "a state that loads no checkpoint (random initialization) is not ported "
+            "to sat_tpu_torch yet"
+        )
+    if model_file and model_file.endswith(".npy"):
+        raise NotImplementedError(
+            f"{model_file}: importing the reference's .npy checkpoint is not ported "
+            "to sat_tpu_torch yet (only <step>.npz)"
+        )
+    expect = vocab_fingerprint(config.vocabulary_file, config.vocabulary_size)
+    if model_file:
+        check_vocab(model_file, expect)
+        flat, source = load_flat(model_file), model_file
+    else:
+        flat, source = walk_back(config.save_dir, expect)
+    state = state_from_flat(flat, config, dev, source)
+    print(f"checkpoint {source} loaded (step {state.step}).")
+    return state
+
+
+# ---------------------------------------------------------------------------
+# decoding
+# ---------------------------------------------------------------------------
+
+
+def _eos_id(vocabulary: Vocabulary) -> int:
+    """Vocabulary index of the '.' terminator."""
+    return vocabulary.word2idx["."]
+
+
+@torch.inference_mode()
+def decode_batch(
+    params: Dict[str, Any],
+    config: Config,
+    images: torch.Tensor,
+    eos_id: int,
+    valid_size: int,
+    return_alphas: bool = False,
+) -> BeamResult:
+    """One batch [B, S, S, 3] on the params' device: encode, then the
+    monolithic beam search at ``config.beam_size``.  ``params`` is the
+    :func:`compute_params` copy."""
+    contexts = encode(params, config, images)
+    return beam_search(
+        params["decoder"], config, contexts, eos_id,
+        beam_size=config.beam_size, valid_size=valid_size, return_alphas=return_alphas,
+    )
+
+
+def decode_dataset(
+    config: Config,
+    state: ServingState,
+    dataset: DataSet,
+    vocabulary: Vocabulary,
+    device=None,
+) -> List[Dict[str, Any]]:
+    """Beam-search every image; returns [{image_id, image_file, caption,
+    prob}] (plus 'words' and 'alphas' [len, N] with
+    ``save_attention_maps``), with last-batch padding dropped and each
+    image id kept once."""
+    check_ported(config)
+    dev = resolve_device(device)
+    params = compute_params(to_device(state.params, dev), config)
+    eos = _eos_id(vocabulary)
+    valid_size = len(vocabulary.words)
+
+    results: List[Dict[str, Any]] = []
+    seen = set()
+    emitted = 0
+
+    def drain(out: BeamResult, files) -> None:
+        nonlocal emitted
+        words = out.words[:, 0].cpu().numpy()          # best caption per image
+        lengths = out.lengths[:, 0].cpu().numpy()
+        scores = out.log_scores[:, 0].cpu().numpy()
+        alphas = out.alphas[:, 0].cpu().numpy() if out.alphas is not None else None
+        for i, image_file in enumerate(files):
+            if emitted >= dataset.count:                # fake_count padding
+                break
+            # eval/test DataSets are unshuffled: batch order is image_ids order
+            image_id = int(dataset.image_ids[emitted])
+            emitted += 1
+            if image_id in seen:
+                continue
+            seen.add(image_id)
+            length = max(1, int(lengths[i]))
+            row = {
+                "image_id": image_id,
+                "image_file": str(image_file),
+                "caption": vocabulary.get_sentence(words[i, :length]),
+                "prob": float(np.exp(scores[i])),
+            }
+            if alphas is not None:
+                row["words"] = [vocabulary.words[w] for w in words[i, :length]]
+                row["alphas"] = alphas[i, :length]      # [len, N]
+            results.append(row)
+
+    # batch n+1 is dispatched before batch n is drained
+    prev: Optional[Tuple[BeamResult, List[str]]] = None
+    feed = device_prefetch(make_loader(config, dataset), dev)
+    try:
+        for batch in feed:
+            out = decode_batch(
+                params, config, batch["images"], eos, valid_size,
+                return_alphas=config.save_attention_maps,
+            )
+            if prev is not None:
+                drain(*prev)
+            prev = (out, batch["files"])
+    finally:
+        feed.close()
+    if prev is not None:
+        drain(*prev)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# artifacts
+# ---------------------------------------------------------------------------
+
+
+def _render_attention_panel(
+    image_file: str,
+    words: List[str],
+    alphas: np.ndarray,
+    out_file: str,
+) -> None:
+    """Per-word attention figure: the image, then one tile per generated
+    word with its soft-attention map α upsampled from the context grid
+    and overlaid.  alphas: [len(words), N], N a square grid (196 → 14×14).
+    Composited with cv2, as the JAX package does."""
+    import cv2
+
+    bgr = cv2.imread(image_file, cv2.IMREAD_COLOR)
+    if bgr is None:
+        raise FileNotFoundError(image_file)
+    h, w = bgr.shape[:2]
+    tile_w = max(180, min(w, 360))
+    tile_h = int(round(tile_w * h / w))
+    base = cv2.resize(bgr, (tile_w, tile_h), interpolation=cv2.INTER_AREA)
+    g = int(round(np.sqrt(alphas.shape[1])))
+    # one shared color scale across the caption: per-tile autoscaling
+    # would stretch a near-uniform map to the contrast of a peaked one
+    vmax = float(alphas.max()) or 1.0
+
+    label_h = 22
+    pad = 6
+
+    def tile(image, label):
+        canvas = np.full((label_h + tile_h, tile_w, 3), 255, dtype=np.uint8)
+        cv2.putText(
+            canvas, label[:24], (4, label_h - 7),
+            cv2.FONT_HERSHEY_SIMPLEX, 0.45, (0, 0, 0), 1, cv2.LINE_AA,
+        )
+        canvas[label_h:, :, :] = image
+        return canvas
+
+    tiles = [tile(base, "input")]
+    for t, word in enumerate(words):
+        amap = cv2.resize(
+            alphas[t].reshape(g, g).astype(np.float32), (tile_w, tile_h),
+            interpolation=cv2.INTER_CUBIC,
+        )
+        amap_u8 = np.clip(amap / vmax * 255.0, 0.0, 255.0).astype(np.uint8)
+        heat = cv2.applyColorMap(amap_u8, cv2.COLORMAP_JET)
+        blend = cv2.addWeighted(base, 0.4, heat, 0.6, 0.0)
+        tiles.append(tile(blend, word))
+
+    cols = min(5, len(tiles))
+    rows = -(-len(tiles) // cols)
+    cell_h, cell_w = tiles[0].shape[:2]
+    panel = np.full(
+        (rows * (cell_h + pad) + pad, cols * (cell_w + pad) + pad, 3),
+        255, dtype=np.uint8,
+    )
+    for idx, t_img in enumerate(tiles):
+        r, c = divmod(idx, cols)
+        y = pad + r * (cell_h + pad)
+        x = pad + c * (cell_w + pad)
+        panel[y:y + cell_h, x:x + cell_w] = t_img
+    cv2.imwrite(out_file, panel)
+
+
+def _save_attention_panels(results: List[Dict[str, Any]], out_dir: str) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    for r in results:
+        if "alphas" not in r:
+            continue
+        stem = os.path.splitext(os.path.basename(r["image_file"]))[0]
+        _render_attention_panel(
+            r["image_file"], r["words"], r["alphas"],
+            os.path.join(out_dir, f"{stem}_attention.jpg"),
+        )
+
+
+def _export_attention_artifacts(results: List[Dict[str, Any]], out_dir: str) -> None:
+    """attn.jsonl (per-caption alpha grids with entropy and coverage
+    statistics) and the HTML contact sheet, next to the panels."""
+    from .telemetry import exporters
+
+    os.makedirs(out_dir, exist_ok=True)
+    n = exporters.export_attention_jsonl(results, os.path.join(out_dir, "attn.jsonl"))
+    sheet = exporters.render_attention_sheet(results, os.path.join(out_dir, "attn.html"))
+    if n:
+        print(
+            f"attention introspection: {n} captions -> "
+            f"{os.path.join(out_dir, 'attn.jsonl')}"
+            + (f", contact sheet {sheet}" if sheet else "")
+        )
+
+
+def _render_caption_images(results: List[Dict[str, Any]], out_dir: str) -> None:
+    for r in results:
+        stem = os.path.splitext(os.path.basename(r["image_file"]))[0]
+        _render_caption_image(
+            r["image_file"], r["caption"], os.path.join(out_dir, f"{stem}_result.jpg")
+        )
+
+
+def _render_caption_image(image_file: str, caption: str, out_file: str) -> None:
+    """Captioned JPEG: the caption in a banner above the image, with cv2."""
+    import cv2
+
+    img = cv2.imread(image_file, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(image_file)
+    h, w = img.shape[:2]
+    out_w = max(320, min(w, 640))
+    out_h = int(round(out_w * h / w))
+    img = cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)
+
+    # wrap the caption into lines that fit the banner
+    font, scale, thick = cv2.FONT_HERSHEY_SIMPLEX, 0.5, 1
+    lines, cur = [], ""
+    for word in caption.split():
+        cand = (cur + " " + word).strip()
+        if cv2.getTextSize(cand, font, scale, thick)[0][0] > out_w - 12 and cur:
+            lines.append(cur)
+            cur = word
+        else:
+            cur = cand
+    if cur:
+        lines.append(cur)
+
+    line_h = 20
+    banner_h = 8 + line_h * max(1, len(lines))
+    canvas = np.full((banner_h + out_h, out_w, 3), 255, dtype=np.uint8)
+    for k, line in enumerate(lines):
+        cv2.putText(
+            canvas, line, (6, 8 + line_h * k + 12),
+            font, scale, (0, 0, 0), thick, cv2.LINE_AA,
+        )
+    canvas[banner_h:, :, :] = img
+    cv2.imwrite(out_file, canvas)
+
+
+# ---------------------------------------------------------------------------
+# eval
+# ---------------------------------------------------------------------------
+
+
+def evaluate(
+    config: Config,
+    state: Optional[ServingState] = None,
+    model_file: Optional[str] = None,
+    prepared: Optional[Tuple[Any, DataSet, Vocabulary]] = None,
+    device=None,
+) -> Dict[str, float]:
+    """Scored beam-search decoding over the eval split: results.json and
+    BLEU-1..4 / METEOR / ROUGE_L / CIDEr.
+
+    ``prepared``: an existing ``(coco, dataset, vocabulary)`` from
+    :func:`prepare_eval_data`, so a sweep reads the captions once."""
+    check_ported(config)
+    dev = resolve_device(device)
+    coco, dataset, vocabulary = prepared or prepare_eval_data(config)
+    if state is None:
+        state = setup_state(config, load=True, model_file=model_file, device=dev)
+
+    results = decode_dataset(config, state, dataset, vocabulary, device=dev)
+    payload = [{"image_id": r["image_id"], "caption": r["caption"]} for r in results]
+    atomic_write(config.eval_result_file, "w", lambda f: json.dump(payload, f))
+
+    if config.save_eval_result_as_image:
+        os.makedirs(config.eval_result_dir, exist_ok=True)
+        _render_caption_images(results, config.eval_result_dir)
+    if config.save_attention_maps:
+        _save_attention_panels(results, config.eval_result_dir)
+        _export_attention_artifacts(results, config.eval_result_dir)
+
+    coco_res = coco.load_results(payload)
+    return CocoEvalCap(coco, coco_res, eval_data=dataset).evaluate()
+
+
+def evaluate_sweep(config: Config, device=None) -> Dict[int, Dict[str, float]]:
+    """Score every checkpoint under save_dir, in-process: the eval split is
+    prepared once.  Writes ``<step>.txt`` score dumps next to the
+    checkpoints and returns {step: scores}."""
+    check_ported(config)
+    dev = resolve_device(device)
+    prepared = prepare_eval_data(config)
+    sweep: Dict[int, Dict[str, float]] = {}
+    for step in lineage.checkpoint_steps(config.save_dir):
+        path = os.path.join(config.save_dir, f"{step}.npz")
+        state = state_from_flat(load_flat(path), config, dev, path)
+        scores = evaluate(config, state=state, prepared=prepared, device=dev)
+        sweep[step] = scores
+        atomic_write(
+            os.path.join(config.save_dir, f"{step}.txt"),
+            "w",
+            lambda f: f.writelines(f"{k}: {v:.4f}\n" for k, v in scores.items()),
+        )
+    return sweep
+
+
+# ---------------------------------------------------------------------------
+# test
+# ---------------------------------------------------------------------------
+
+
+def test(
+    config: Config,
+    state: Optional[ServingState] = None,
+    model_file: Optional[str] = None,
+    device=None,
+) -> List[Dict[str, Any]]:
+    """Caption every JPEG of ``test_image_dir``: captioned JPEGs and
+    results.csv."""
+    check_ported(config)
+    dev = resolve_device(device)
+    dataset, vocabulary = prepare_test_data(config)
+    if dataset.count == 0:
+        print(f"no images found in {config.test_image_dir}")
+        return []
+    if state is None:
+        state = setup_state(config, load=True, model_file=model_file, device=dev)
+
+    results = decode_dataset(config, state, dataset, vocabulary, device=dev)
+
+    os.makedirs(config.test_result_dir, exist_ok=True)
+    _render_caption_images(results, config.test_result_dir)
+    if config.save_attention_maps:
+        _save_attention_panels(results, config.test_result_dir)
+        _export_attention_artifacts(results, config.test_result_dir)
+
+    import pandas as pd
+
+    pd.DataFrame(
+        {
+            "image_files": [r["image_file"] for r in results],
+            "caption": [r["caption"] for r in results],
+            "prob": [r["prob"] for r in results],
+        }
+    ).to_csv(config.test_result_file)
+    return results

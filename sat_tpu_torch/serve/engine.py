@@ -16,10 +16,9 @@ knobs raise here.
 
 from __future__ import annotations
 
-import os
 import sys
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +30,9 @@ from ..device import resolve_device
 from ..models.captioner import check_encoder, encode
 from ..ops.beam_search import BeamResult, beam_search
 from ..resilience import lineage
-from ..train.checkpoint import check_vocab, load_flat, params_from_flat
+from ..train.checkpoint import (
+    ServingState, check_vocab, compute_params, load_flat, state_from_flat, to_device, walk_back,
+)
 
 
 class BucketOverflow(ValueError):
@@ -45,11 +46,6 @@ class BucketOverflow(ValueError):
         )
         self.n = n
         self.largest = int(buckets[-1])
-
-
-class ServingState(NamedTuple):
-    params: Dict[str, Any]   # params_from_flat layout, on the serving device
-    step: int                # the checkpoint's global_step
 
 
 def check_ported(config: Config) -> None:
@@ -70,30 +66,6 @@ def check_ported(config: Config) -> None:
             )
 
 
-def _walk_back(save_dir: str, expect: Optional[dict]) -> Tuple[Dict[str, np.ndarray], str]:
-    """Newest checkpoint under ``save_dir`` that verifies and loads.  A
-    vocabulary mismatch raises at once: every older checkpoint of the run
-    shares the vocabulary."""
-    rejected = []
-    for step in sorted(lineage.checkpoint_steps(save_dir), reverse=True):
-        path = os.path.join(save_dir, f"{step}.npz")
-        ok, reason = lineage.verify_checkpoint(path)
-        if ok:
-            check_vocab(path, expect)
-            try:
-                return load_flat(path), path
-            except (OSError, ValueError) as e:
-                reason = f"load failed: {e}"
-        rejected.append(f"{os.path.basename(path)} ({reason})")
-        print(
-            f"sat_tpu_torch: checkpoint {path} rejected ({reason}); walking back",
-            file=sys.stderr,
-            flush=True,
-        )
-    detail = f"; rejected: {', '.join(rejected)}" if rejected else ""
-    raise FileNotFoundError(f"no verifiable checkpoint found (save_dir={save_dir!r}{detail})")
-
-
 def load_serving_state(
     config: Config, model_file: Optional[str] = None, device=None
 ) -> Tuple[ServingState, str]:
@@ -110,12 +82,8 @@ def load_serving_state(
         check_vocab(source, expect)
         flat = load_flat(source)
     else:
-        flat, source = _walk_back(config.save_dir, expect)
-    if not any(k.startswith("params/") for k in flat):
-        raise ValueError(f"serving checkpoint {source} restored 0 tensors")
-    params = params_from_flat(flat, config, dev)
-    step = int(np.asarray(flat.get("global_step", 0)))
-    return ServingState(params=params, step=step), source
+        flat, source = walk_back(config.save_dir, expect)
+    return state_from_flat(flat, config, dev, source), source
 
 
 def _effective_buckets(buckets: Sequence[int], max_batch: int) -> Tuple[int, ...]:
@@ -127,36 +95,6 @@ def _effective_buckets(buckets: Sequence[int], max_batch: int) -> Tuple[int, ...
             out.append(int(b))
             break
     return tuple(out)
-
-
-def _compute_params(params: Dict[str, Any], config: Config) -> Dict[str, Any]:
-    """The serving copy of the params: conv weights and dense kernels and
-    biases cast once to ``compute_dtype`` (each op would round them to it
-    anyway, so values are unchanged), conv weights ``channels_last``.
-    Kept float32: the LSTM bias (added after the float32 cast), the word
-    embedding (gathered in float32) and the attention ``fc_2`` kernel (the
-    fused kernel's float32 ``w2``)."""
-    dt = getattr(torch, config.compute_dtype)
-    cnn = {
-        name: {
-            "weight": p["weight"].to(dt).contiguous(memory_format=torch.channels_last),
-            "bias": p["bias"].to(dt),
-        }
-        for name, p in params["cnn"].items()
-    }
-
-    def cast(node, path):
-        out = {}
-        for key, value in node.items():
-            if isinstance(value, dict):
-                out[key] = cast(value, f"{path}/{key}")
-            elif f"{path}/{key}" in ("/lstm/bias", "/word_embedding/weights", "/attend/fc_2/kernel"):
-                out[key] = value
-            else:
-                out[key] = value.to(dt)
-        return out
-
-    return {"cnn": cnn, "decoder": cast(params["decoder"], "")}
 
 
 class ServeEngine:
@@ -176,9 +114,7 @@ class ServeEngine:
         self.vocabulary = vocabulary
         self.eos_id = vocabulary.word2idx["."]
         self.step = int(state.step)
-        self._params = _compute_params(
-            {k: _to(v, self.device) for k, v in state.params.items()}, config
-        )
+        self._params = compute_params(to_device(state.params, self.device), config)
         self.buckets = _effective_buckets(config.serve_buckets, config.serve_max_batch)
         self.loader = ImageLoader(size=config.image_size, raw=config.device_preprocess)
         self._image_dtype = np.uint8 if config.device_preprocess else np.float32
@@ -275,8 +211,3 @@ class ServeEngine:
     def decode_output(self, out: BeamResult, n: int) -> List[Dict[str, Any]]:
         return self.detok_rows(self.drain_output(out, n), n)
 
-
-def _to(node, device):
-    if isinstance(node, dict):
-        return {k: _to(v, device) for k, v in node.items()}
-    return node.to(device)

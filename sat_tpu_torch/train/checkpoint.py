@@ -14,12 +14,18 @@ checkpoint crosses in both directions:
 
 Optimizer state and ``global_step`` are skipped by name; any other name
 this configuration does not have raises, and so does a missing one.
+
+:func:`walk_back` picks the newest checkpoint of a save_dir that
+verifies, :func:`state_from_flat` loads one as a :class:`ServingState`,
+and :func:`compute_params` makes the copy of the params that every
+decoding entry point (serving, eval, test) runs on.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+import sys
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,3 +193,84 @@ def check_vocab(path: str, expect: Optional[dict]) -> None:
             f"words, sha {str(recorded.get('sha256'))[:12]}…) — restore "
             "with the original vocabulary.csv or retrain"
         )
+
+
+def walk_back(save_dir: str, expect: Optional[dict]) -> Tuple[Dict[str, np.ndarray], str]:
+    """Newest checkpoint under ``save_dir`` that verifies and loads.  A
+    vocabulary mismatch raises at once: every older checkpoint of the run
+    shares the vocabulary."""
+    rejected = []
+    for step in sorted(lineage.checkpoint_steps(save_dir), reverse=True):
+        path = os.path.join(save_dir, f"{step}.npz")
+        ok, reason = lineage.verify_checkpoint(path)
+        if ok:
+            check_vocab(path, expect)
+            try:
+                return load_flat(path), path
+            except (OSError, ValueError) as e:
+                reason = f"load failed: {e}"
+        rejected.append(f"{os.path.basename(path)} ({reason})")
+        print(
+            f"sat_tpu_torch: checkpoint {path} rejected ({reason}); walking back",
+            file=sys.stderr,
+            flush=True,
+        )
+    detail = f"; rejected: {', '.join(rejected)}" if rejected else ""
+    raise FileNotFoundError(f"no verifiable checkpoint found (save_dir={save_dir!r}{detail})")
+
+
+class ServingState(NamedTuple):
+    """A checkpoint's frozen params, as every decoding entry point (serving,
+    eval, test) loads them."""
+
+    params: Dict[str, Any]   # params_from_flat layout, on the decoding device
+    step: int                # the checkpoint's global_step
+
+
+def state_from_flat(flat: Dict[str, np.ndarray], config: Config, device, source: str) -> ServingState:
+    """``params_from_flat`` on ``device`` and the checkpoint's step; a file
+    that holds no parameter at all is an error."""
+    if not any(k.startswith("params/") for k in flat):
+        raise ValueError(f"checkpoint {source} restored 0 tensors")
+    return ServingState(
+        params=params_from_flat(flat, config, device),
+        step=int(np.asarray(flat.get("global_step", 0))),
+    )
+
+
+def compute_params(params: Dict[str, Any], config: Config) -> Dict[str, Any]:
+    """The decoding copy of the params (serving, eval and test): conv
+    weights and dense kernels and biases cast once to ``compute_dtype``
+    (each op would round them to it anyway, so values are unchanged),
+    conv weights ``channels_last``.
+    Kept float32: the LSTM bias (added after the float32 cast), the word
+    embedding (gathered in float32) and the attention ``fc_2`` kernel (the
+    fused kernel's float32 ``w2``)."""
+    dt = getattr(torch, config.compute_dtype)
+    cnn = {
+        name: {
+            "weight": p["weight"].to(dt).contiguous(memory_format=torch.channels_last),
+            "bias": p["bias"].to(dt),
+        }
+        for name, p in params["cnn"].items()
+    }
+
+    def cast(node, path):
+        out = {}
+        for key, value in node.items():
+            if isinstance(value, dict):
+                out[key] = cast(value, f"{path}/{key}")
+            elif f"{path}/{key}" in ("/lstm/bias", "/word_embedding/weights", "/attend/fc_2/kernel"):
+                out[key] = value
+            else:
+                out[key] = value.to(dt)
+        return out
+
+    return {"cnn": cnn, "decoder": cast(params["decoder"], "")}
+
+
+def to_device(node, device):
+    """The params tree (nested dicts of tensors) moved to ``device``."""
+    if isinstance(node, dict):
+        return {k: to_device(v, device) for k, v in node.items()}
+    return node.to(device)

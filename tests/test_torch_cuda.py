@@ -34,7 +34,7 @@ def _inputs(B, N, da, D, seed=0):
 @pytest.mark.parametrize(
     "B,N,da,D",
     [(96, 196, 512, 512), (5, 7, 24, 40), (1, 1, 4, 4), (3, 13, 13, 7), (2, 12000, 8, 300), (4, 49, 512, 2048),
-     (2, 5, 22, 38)],
+     (2, 5, 22, 38), (60, 196, 512, 512)],
 )
 def test_kernel_matches_plain_version(cuda, dtype, B, N, da, D):
     args = _inputs(B, N, da, D)

@@ -27,11 +27,12 @@ def _port_sources():
 
 
 def test_import_loads_neither_jax_nor_sat_tpu():
-    """Every submodule imports in a fresh interpreter without loading jax,
-    flax, optax or any sat_tpu module."""
+    """The eval/test runtime, the scorers and the CLI, then every
+    submodule, import in a fresh interpreter without loading jax, flax,
+    optax or any sat_tpu module."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import sat_tpu_torch\n"
+        "import sat_tpu_torch.runtime, sat_tpu_torch.evalcap, sat_tpu_torch.cli\n"
         "names = [m.name for m in pkgutil.walk_packages(sat_tpu_torch.__path__, 'sat_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sat_tpu'))\n"
@@ -42,7 +43,7 @@ def test_import_loads_neither_jax_nor_sat_tpu():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
+    assert int(count) >= 30
     assert bad == "[]"
 
 
@@ -140,13 +141,13 @@ def test_kernel_library_is_named_by_source_hash(tmp_path, monkeypatch):
 def test_cli_serves_only_the_ported_phase(tmp_path):
     from sat_tpu_torch.cli import build_config, main
 
-    config, model_file = build_config(
+    config, opts = build_config(
         ["--phase", "serve", "--port", "0", "--max_batch", "4", "--model_file", "x.npz",
          "--set", "beam_size=2", "--set", "serve_buckets=1,4", "--set", "num_initalize_layers=1"]
     )
     assert (config.phase, config.serve_port, config.serve_max_batch) == ("serve", 0, 4)
     assert (config.beam_size, config.serve_buckets, config.num_initialize_layers) == (2, (1, 4), 1)
-    assert model_file == "x.npz"
+    assert opts["model_file"] == "x.npz"
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--phase", "train"])
     with pytest.raises(SystemExit, match="unknown Config field"):

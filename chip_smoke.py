@@ -7,8 +7,9 @@ Phases, each fatal on failure:
 2. build  — compiles every ``sat_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
 3. kernel — the CUDA ``fused_attend`` against its plain torch version on
    the card, at the flagship decode shapes (buckets 32, 16, 4 and 1 ×
-   beam 3 = 96, 48, 12 and 3 rows, and eval's batch 20 × beam 3 = 60
-   rows; N=196, da=D=512) and two ragged ones,
+   beam 3 = 96, 48, 12 and 3 rows, eval's batch 20 × beam 3 = 60 rows
+   and the eval-loss step's batch of 20; N=196, da=D=512) and two
+   ragged ones,
    in float32 and bfloat16, with a control that a kernel rounding in the
    wrong place fails; times each with CUDA events beside the kernel's
    memory bound, and prints its launch plan (blocks per row, shared
@@ -67,6 +68,27 @@ Phases, each fatal on failure:
 12. eval steady — ``decode_dataset`` at full width over 400 JPEGs of
    480 px (20 batches of 20): images/s of two warm passes, then the
    card's busy share of one pass under torch.profiler.
+13. train reference — the train path at the small float32 size, dropout
+   off: 3 Adam steps on the card and on the CPU from the same weights
+   and batch (losses within 1e-5 relative, parameters within 1e-5
+   absolute, no kernel launched by a train step); ``fused_attend``
+   refusing an input that requires grad on the card; an eval-loss step
+   launching the kernel once a decode step, its metrics the CPU's
+   within 1e-5 relative.
+14. train — the flagship model with ``Config``'s training defaults
+   (dropout 0.5/0.3, Adam 1e-4, clip 5, batch 20, frozen CNN, async
+   checkpoints) on the eval steady fixture with two captions an image
+   (800 pairs): ``python -m sat_tpu_torch.cli --phase train`` in a fresh
+   process for 60 steps (checkpoints 20, 40, 60 verify, LAST_GOOD 60,
+   finite metrics, the loss falls, no kernel launched); ``--load`` to 80
+   (resumes at 60, 80.npz holds 60.npz's names); ``--phase test`` on 7
+   JPEGs with 80.npz.
+15. train steady — ``runtime.train`` in-process at full width: the median
+   of 30 warm steps (each ending in ``torch.cuda.synchronize``),
+   training pairs/s, peak memory, FLOPs a step from the shapes against
+   989 TFLOP/s bf16; 5 steps under torch.profiler (busy share, top
+   kernels); the host time of forward, backward and update apart; one
+   eval-loss step at full width launching the kernel T times.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or
@@ -231,8 +253,8 @@ def masked_phase(torch, fa):
     return rows, max(errs)
 
 
-KERNEL_SHAPES = ((96, 196, 512, 512), (60, 196, 512, 512), (48, 196, 512, 512), (12, 196, 512, 512),
-                 (5, 7, 24, 40), (2, 5, 22, 38), (3, 196, 512, 512))
+KERNEL_SHAPES = ((96, 196, 512, 512), (60, 196, 512, 512), (48, 196, 512, 512), (20, 196, 512, 512),
+                 (12, 196, 512, 512), (5, 7, 24, 40), (2, 5, 22, 38), (3, 196, 512, 512))
 
 
 def kernel_phase(torch, fa):
@@ -1125,6 +1147,335 @@ def eval_steady_phase(torch, np, config, card: str):
               flush=True)
 
 
+# -- train phases ---------------------------------------------------------------
+
+def small_train_config(**kw):
+    """The tests' small float32 model (32 px, N=4) with dropout off."""
+    from sat_tpu_torch.config import Config
+
+    return Config(
+        image_size=32, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16,
+        dim_attend_layer=16, dim_decode_layer=32, vocabulary_size=50, compute_dtype="float32",
+        max_caption_length=8, fc_drop_rate=0.0, lstm_drop_rate=0.0, **kw,
+    )
+
+
+def train_batch(np, config, B: int, seed: int):
+    """uint8 images, word ids in [1, V) over rows of 3..T words, masks."""
+    rng = np.random.default_rng(seed)
+    T = config.max_caption_length
+    masks = (np.arange(T)[None] < rng.integers(3, T + 1, size=(B, 1))).astype(np.float32)
+    return {
+        "images": rng.integers(0, 256, size=(B, config.image_size, config.image_size, 3), dtype=np.uint8),
+        "word_idxs": (rng.integers(1, config.vocabulary_size, size=(B, T)) * masks).astype(np.int32),
+        "masks": masks,
+    }
+
+
+def train_reference_phase(torch, np, fa):
+    """The train path at the small float32 size, dropout off: 3 Adam steps
+    on the card and on the CPU from the same weights and batch (losses
+    within 1e-5 relative, parameters within 1e-5 absolute, and no kernel
+    launched by a train step); the kernel refuses to be differentiated on
+    the card; an eval-loss step on the card launches B1 once a decode step
+    (T in all) and matches the CPU's metrics within 1e-5 relative."""
+    from sat_tpu_torch.device import resolve_device
+    from sat_tpu_torch.train.checkpoint import params_to_flat
+    from sat_tpu_torch.train.step import (
+        create_train_state, make_eval_loss_step, make_train_step, step_generator,
+    )
+
+    config = small_train_config()
+    resolve_device("cuda")
+    batch = train_batch(np, config, 4, SEED + 50)
+    losses, flats, evals = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(config, torch.Generator().manual_seed(SEED), dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        step = make_train_step(config)
+        before = (fa.fused_attend.launches, fa.fused_attend.masked_launches)
+        losses[dev] = []
+        for s in range(3):
+            state, metrics = step(state, tb, step_generator(SEED, s, dev))
+            losses[dev].append(float(metrics["total_loss"]))
+        if (fa.fused_attend.launches, fa.fused_attend.masked_launches) != before:
+            fail("train reference: a train step launched fused_attend")
+        flats[dev] = params_to_flat(state.params)
+        before = fa.fused_attend.launches
+        evals[dev] = {k: float(v) for k, v in make_eval_loss_step(config)(state, tb).items()}
+        launched = fa.fused_attend.launches - before
+        if launched != (config.max_caption_length if dev == "cuda" else 0):
+            fail(f"train reference: the eval-loss step on {dev} launched fused_attend {launched} times")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    param_err = max(float(np.abs(flats["cuda"][k] - v).max()) for k, v in flats["cpu"].items())
+    eval_err = max(abs(evals["cuda"][k] - v) / max(abs(v), 1e-30) for k, v in evals["cpu"].items())
+    if not (loss_err <= 1e-5 and param_err <= 1e-5 and eval_err <= 1e-5):
+        fail(f"train reference: cuda vs cpu loss rel err {loss_err:.3e}, param abs err {param_err:.3e}, "
+             f"eval-loss rel err {eval_err:.3e} (tol 1e-5 each)")
+    args = [x.requires_grad_(i == 2) for i, x in
+            enumerate(attention_inputs(torch, 3, 196, 512, 512, torch.Generator(device="cuda").manual_seed(SEED)))]
+    try:
+        fa.fused_attend(*args)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        fail("train reference: fused_attend on the card accepted an input that requires grad")
+    print(f"train reference float32 small model, 3 Adam steps: cuda vs cpu loss rel err {loss_err:.3e}, "
+          f"param abs err {param_err:.3e}, eval-loss rel err {eval_err:.3e} (tol 1e-5); losses "
+          f"{[round(x, 6) for x in losses['cuda']]}; eval-loss step launched fused_attend "
+          f"{config.max_caption_length} times (T); the kernel refused a grad-requiring input", flush=True)
+
+
+TRAIN_STEPS, TRAIN_SAVE, TRAIN_LOG = 60, 20, 10
+
+
+def train_config(steady_root: str, tmp: str):
+    """The flagship model as the repo trains it by default (``Config``'s
+    defaults: VGG16 at 224 px, N=196, D=da=E=H=512, decode layer 1024,
+    V=5000, bf16 compute with float32 params, dropout 0.5/0.3, Adam 1e-4,
+    clip 5, batch 20, T=20, frozen CNN, async checkpoints) on the steady
+    fixture's 400 JPEGs with two captions each: 800 pairs, 40 steps an
+    epoch."""
+    root = os.path.join(tmp, "train")
+    return flagship_config(tmp).replace(
+        phase="train",
+        train_image_dir=os.path.join(steady_root, "images"),
+        train_caption_file=os.path.join(steady_root, "captions.json"),
+        vocabulary_file=os.path.join(root, "vocabulary.csv"),
+        temp_annotation_file=os.path.join(root, "anns.csv"),
+        temp_data_file=os.path.join(root, "data.npy"),
+        save_dir=os.path.join(root, "models"), summary_dir=os.path.join(root, "summary"),
+        max_steps=TRAIN_STEPS, save_period=TRAIN_SAVE, log_every=TRAIN_LOG,
+        test_image_dir=os.path.join(tmp, "test", "images"),
+        test_result_dir=os.path.join(root, "test_results"),
+        test_result_file=os.path.join(root, "test_results.csv"),
+    )
+
+
+def metrics_rows(np, config, where: str):
+    with open(os.path.join(config.summary_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        bad = [k for k, v in r.items() if k not in ("step", "wall_time", "mono_ns", "run_id")
+               and not (isinstance(v, float) and np.isfinite(v))]
+        if bad:
+            fail(f"{where}: metrics.jsonl row of step {r['step']} has non-finite {bad}")
+    return rows
+
+
+def train_phase(np, config, card: str):
+    """``python -m sat_tpu_torch.cli --phase train --config train.json`` in
+    a fresh process at full width, 60 steps: exit 0, the train step
+    launches neither kernel, 20/40/60.npz verify, LAST_GOOD 60, every
+    metrics row finite and the loss falls; then ``--load`` to step 80 (the
+    resume starts at 60, 80.npz holds the names 60.npz holds); then
+    ``--phase test`` on 7 JPEGs with the trained checkpoint."""
+    import csv
+
+    from sat_tpu_torch.resilience import lineage
+    from sat_tpu_torch.train.checkpoint import load_flat
+
+    write_vocabulary(np, config.vocabulary_file, config.vocabulary_size, caption_words())
+    path = os.path.join(os.path.dirname(config.save_dir), "train.json")
+    config.save(path)
+    tally, stdout = run_cli(["--phase", "train", "--config", path], "train")
+    if tally["launches"] or tally["masked"]:
+        fail(f"train: the train loop launched fused_attend {tally['launches']} / masked "
+             f"{tally['masked']} times")
+    steps = lineage.checkpoint_steps(config.save_dir)
+    if steps != [20, 40, 60] or lineage.last_good_step(config.save_dir) != TRAIN_STEPS:
+        fail(f"train: checkpoints {steps}, LAST_GOOD {lineage.last_good_step(config.save_dir)}")
+    for step in steps:
+        ok, reason = lineage.verify_checkpoint(os.path.join(config.save_dir, f"{step}.npz"))
+        if not ok:
+            fail(f"train: {step}.npz does not verify: {reason}")
+    rows = metrics_rows(np, config, "train")
+    if [r["step"] for r in rows] != list(range(TRAIN_LOG, TRAIN_STEPS + 1, TRAIN_LOG)):
+        fail(f"train: metrics.jsonl steps {[r['step'] for r in rows]}")
+    # 6 logged rows: the mean of the last 3 (steps 40-60) against the first 3
+    losses = [r["total_loss"] for r in rows]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        fail(f"train: total_loss did not fall: {losses}")
+    print(f"train flagship on {card}: {TRAIN_STEPS} steps through the CLI in {tally['wall_s']:.2f}s "
+          f"(process start to exit); total_loss at steps 10..60 {[round(x, 4) for x in losses]} "
+          f"(mean {first:.4f} -> {last:.4f}); checkpoints {steps} verify, LAST_GOOD 60; fused_attend "
+          f"launches 0, masked 0", flush=True)
+
+    resumed, stdout = run_cli(["--phase", "train", "--config", path, "--load", "--set", "max_steps=80"],
+                              "train resume")
+    if "(step 60)" not in stdout:
+        fail(f"train resume: did not restore step 60:\n{stdout[-2000:]}")
+    rows = metrics_rows(np, config, "train resume")
+    if [r["step"] for r in rows][-2:] != [70, 80] or lineage.last_good_step(config.save_dir) != 80:
+        fail(f"train resume: metrics steps {[r['step'] for r in rows]}, LAST_GOOD "
+             f"{lineage.last_good_step(config.save_dir)}")
+    names60 = set(load_flat(os.path.join(config.save_dir, "60.npz")))
+    names80 = set(load_flat(os.path.join(config.save_dir, "80.npz")))
+    if names60 != names80:
+        fail(f"train resume: 80.npz names differ from 60.npz's: {sorted(names60 ^ names80)[:6]}")
+    print(f"train resume on {card}: --load from step 60 to 80 in {resumed['wall_s']:.2f}s; 80.npz holds "
+          f"the {len(names80)} names of 60.npz; total_loss at 70, 80: "
+          f"{[round(r['total_loss'], 4) for r in rows[-2:]]}", flush=True)
+
+    model = os.path.join(config.save_dir, "80.npz")
+    test_cfg = os.path.join(os.path.dirname(config.save_dir), "test.json")
+    config.replace(phase="test", max_steps=0).save(test_cfg)
+    tested, _ = run_cli(["--config", test_cfg, "--model_file", model], "train test")
+    check_tally(tested, "train test", batches=1)
+    with open(config.test_result_file, newline="") as f:
+        captions = list(csv.DictReader(f))
+    if len(captions) != 7:
+        fail(f"train test: results.csv has {len(captions)} rows, expected 7")
+    print(f"train test on {card}: --phase test with the trained 80.npz on 7 JPEGs, results.csv 7 rows; "
+          f"fused_attend launches {tested['launches']} over {tested['steps']} steps; sample "
+          f"{captions[0]['caption']!r}", flush=True)
+    return tested["launches"]
+
+
+def train_flops(config) -> float:
+    """FLOPs of one flagship train step from its shapes: the frozen VGG16
+    forward, and the decoder's forward and backward over T steps.  In
+    the backward, ``fc_1a`` needs only its weight gradient (its input,
+    the dropped-out contexts, takes none); every other dense layer needs
+    both (2 × its forward)."""
+    from sat_tpu_torch.models.vgg16 import VGG_LAYERS
+
+    B, T, S = config.batch_size, config.max_caption_length, config.image_size
+    cnn, cin, size = 0, 3, S
+    for _name, cout, pool in VGG_LAYERS:
+        cnn += size * size * 9 * cin * cout
+        cin = cout
+        if pool:
+            size = -(-size // 2)
+    N, D, da = config.num_ctx, config.dim_ctx, config.dim_attend_layer
+    H, E, dd, V = config.num_lstm_units, config.dim_embedding, config.dim_decode_layer, config.vocabulary_size
+    fc_1a = N * D * da
+    rest = da * H + N * da + N * D + (D + E + H) * 4 * H + (H + D + E) * dd + dd * V
+    decoder = T * (fc_1a * 2 + rest * 3)  # MACs, forward and backward
+    return 2.0 * B * (cnn + decoder)
+
+
+def train_steady_phase(torch, np, fa, config, card: str):
+    """``runtime.train`` in-process at full width: 10 steps to warm, 30
+    steps timed one by one (each ends in ``torch.cuda.synchronize``; the
+    median), then 5 under torch.profiler (the card's busy share and top
+    kernels), peak memory; then 5 steps driven by hand on one batch, the
+    host time of forward, backward, update and the drain to the device
+    apart; then one eval-loss step at full width with the launch counts
+    zeroed just before and read just after (B1 once a decode step).
+    Returns the eval-loss step's B1 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_tpu_torch import runtime
+    from sat_tpu_torch.data.dataset import prepare_train_data
+    from sat_tpu_torch.train.step import make_eval_loss_step
+
+    warm, timed, profiled = 10, 30, 5
+    config = config.replace(
+        save_dir=os.path.join(os.path.dirname(config.save_dir), "steady_models"),
+        summary_dir=os.path.join(os.path.dirname(config.summary_dir), "steady_summary"),
+        max_steps=warm + timed + profiled, save_period=0,
+    )
+    ends = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    real = runtime.make_train_step
+
+    def timed_step(cfg):
+        step = real(cfg)
+
+        def run(state, batch, generator):
+            if state.step == warm + timed:
+                prof.__enter__()
+            out = step(state, batch, generator)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if out[0].step == warm + timed + profiled:
+                prof.__exit__(None, None, None)
+            return out
+
+        return run
+
+    runtime.make_train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = runtime.train(config, device="cuda")
+    finally:
+        runtime.make_train_step = real
+    peak = torch.cuda.max_memory_allocated()
+    if state.step != warm + timed + profiled or len(ends) != state.step:
+        fail(f"train steady: ran {state.step} steps, timed {len(ends)}")
+    gaps = [b - a for a, b in zip(ends[warm - 1 : warm + timed - 1], ends[warm : warm + timed])]
+    median = statistics.median(gaps)
+    prof_wall = ends[-1] - ends[warm + timed - 1]
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy == 0:
+        fail("train steady: torch.profiler recorded no device time")
+    flops = train_flops(config)
+    print(f"train steady flagship on {card}: median step {median * 1e3:.2f} ms over {timed} warm steps "
+          f"(min {min(gaps) * 1e3:.2f}, max {max(gaps) * 1e3:.2f}; each step ends in "
+          f"torch.cuda.synchronize), {config.batch_size / median:.1f} training pairs/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); {flops / 1e12:.3f} TFLOP a step from the "
+          f"shapes, {flops / median / 1e12:.2f} TFLOP/s = {flops / median / 989e12:.2%} of 989 TFLOP/s "
+          f"bf16", flush=True)
+    print(f"profile train steady on {card}: {profiled} steps, wall {prof_wall:.3f}s under the profiler, "
+          f"device busy {busy:.3f}s ({busy / prof_wall:.1%} of that wall)", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"profile train kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}",
+              flush=True)
+
+    dataset = prepare_train_data(config)
+    loader = runtime.make_loader(config, dataset)
+    feed = runtime.device_prefetch(loader, runtime.resolve_device("cuda"))
+    try:
+        batch = next(iter(feed))
+    finally:
+        feed.close()
+    # where a step's host time goes: 5 steps driven by hand on this one
+    # device batch, each part timed by the host clock (the card is idle
+    # most of a step, so the enqueue time of a part is close to its wall)
+    from sat_tpu_torch.models.captioner import compute_loss
+    from sat_tpu_torch.train.optimizer import _leaves, make_optimizer
+    from sat_tpu_torch.train.step import _like, split_trainable, step_generator
+
+    optimizer = make_optimizer(config)
+    trainable, _ = split_trainable(state.params, config)
+    parts = {"forward": [], "backward": [], "update": [], "drain": []}
+    for s in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, _ = compute_loss(state.params, config, batch, step_generator(SEED, s, batch["images"].device))
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(total, _leaves(trainable))
+        t2 = time.perf_counter()
+        optimizer.step(trainable, _like(trainable, grads), state.opt_state)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if s:  # the first warms the allocator for this batch
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(v * 1e3)
+    split = ", ".join(f"{k} {statistics.median(v):.2f} ms" for k, v in parts.items())
+    print(f"train host split on {card} (median of 5 hand-driven steps on one batch, host clock): {split}; "
+          f"sum {sum(statistics.median(v) for v in parts.values()):.2f} ms", flush=True)
+
+    fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+    metrics = make_eval_loss_step(config)(state, batch)
+    torch.cuda.synchronize()
+    launches, masked = fa.fused_attend.launches, fa.fused_attend.masked_launches
+    if launches != config.max_caption_length or masked:
+        fail(f"train steady: the eval-loss step launched fused_attend {launches} times (masked {masked}), "
+             f"expected T={config.max_caption_length}")
+    values = {k: round(float(v), 4) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"train steady: eval-loss metrics not finite: {values}")
+    print(f"train eval-loss flagship on {card}: B1 launched {launches} times (T), masked 0; metrics {values}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", action="store_true", help="build and kernel bench only")
@@ -1201,14 +1552,25 @@ def main() -> int:
         t0 = time.perf_counter()
         eval_steady_phase(torch, np, config, card)
         phase("eval steady", t0)
+        t0 = time.perf_counter()
+        train_reference_phase(torch, np, fa)
+        phase("train reference", t0)
+        t0 = time.perf_counter()
+        config = train_config(os.path.join(tmp, "steady"), tmp)
+        train_test_launches = train_phase(np, config, card)
+        phase("train", t0)
+        t0 = time.perf_counter()
+        eval_loss_launches = train_steady_phase(torch, np, fa, config, card)
+        phase("train steady", t0)
 
-    eval_row = next(r for r in rows if (r["B"], r["dtype"]) == (60, "bfloat16"))
-    print(f"kernel fused_attend bf16 B=60 (eval: batch 20 x beam 3) on {card}: {eval_row['ms'] * 1e3:.1f} us, "
-          f"bound {eval_row['bound_ms'] * 1e3:.1f} us ({eval_row['bound_by']}, "
-          f"{eval_row['bound_ms'] / eval_row['ms']:.1%} of it), plain {eval_row['plain_ms'] * 1e3:.1f} us",
-          flush=True)
+    for B, what in ((60, "eval: batch 20 x beam 3"), (20, "eval-loss step: batch 20")):
+        row = next(r for r in rows if (r["B"], r["dtype"]) == (B, "bfloat16"))
+        print(f"kernel fused_attend bf16 B={B} ({what}) on {card}: {row['ms'] * 1e3:.1f} us, "
+              f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     print(f"fused_attend launches on the main paths: batch serve {launches}, eval and sweep "
-          f"{eval_launches}, test {test_launches}", flush=True)
+          f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
+          f"step {eval_loss_launches}; train steps 0", flush=True)
     main_row = next(r for r in rows if (r["B"], r["dtype"]) == (96, "bfloat16"))
     masked_row = next(r for r in masked_rows if r["live"] == 48)
     print(json.dumps({"kernels": [{
@@ -1216,7 +1578,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:65",
-        "launches": launches + eval_launches + test_launches,
+        "launches": launches + eval_launches + test_launches + train_test_launches + eval_loss_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],

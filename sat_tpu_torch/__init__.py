@@ -4,11 +4,13 @@ The port of ``sat_tpu`` (the JAX package, which stays the reference) to an
 NVIDIA H100.  It imports ``torch``, never ``jax``, and nothing of
 ``sat_tpu``.  Ported so far: caption serving in batch and continuous mode —
 VGG16 encoder, soft-attention LSTM decoder, the monolithic beam search and
-the stepped decode over a paged slot pool, the HTTP server — and the eval
+the stepped decode over a paged slot pool, the HTTP server — the eval
 and test phases (``runtime``: results.json scored by the COCO caption
-metrics of ``evalcap``, results.csv and captioned JPEGs), with the
-attention step (unmasked and row-masked) as a hand-written CUDA kernel
-(``ops.fused_attend``).
+metrics of ``evalcap``, results.csv and captioned JPEGs), and training
+(``runtime.train``: the teacher-forced loss and autograd's backward, the
+optax chain of ``train.optimizer``, resumable checkpoints in the JAX
+package's format), with the attention step of decoding (unmasked and
+row-masked) as a hand-written CUDA kernel (``ops.fused_attend``).
 
 Exports resolve lazily, so ``import sat_tpu_torch`` loads nothing heavy.
 """
@@ -32,6 +34,14 @@ _EXPORTS = {
     "decode_dataset": ".runtime",
     "evaluate": ".runtime",
     "test": ".runtime",
+    "train": ".runtime",
+    "setup_train_state": ".runtime",
+    "compute_loss": ".models.captioner",
+    "make_train_step": ".train.step",
+    "make_eval_loss_step": ".train.step",
+    "make_optimizer": ".train.optimizer",
+    "save_checkpoint": ".train.checkpoint",
+    "restore_checkpoint": ".train.checkpoint",
 }
 
 __all__ = sorted(_EXPORTS)

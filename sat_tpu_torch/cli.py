@@ -1,14 +1,17 @@
-"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase serve|eval|test``.
+"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase train|serve|eval|test``.
 
 The port of ``sat_tpu.cli`` for the phases ported so far, which run on
 the card.  It takes the JAX CLI's flags for them (``--config``, ``--set
-key=value``, ``--model_file``, ``--load``, ``--load_cnn`` (which raises:
-not ported), ``--beam_size``, ``--shard_cache``, ``--sweep``; for serve ``--port``, ``--max_batch``,
-``--max_wait_ms``, ``--serve_mode``, ``--serve_decode_depth``), so one
-config file and one override list drive both packages.  Eval prints each
-score as ``name: value``; ``--sweep`` scores every checkpoint under
-save_dir and prints a ``step N: ...`` line for each.  Any other phase
-exits with "not ported yet".
+key=value``, ``--model_file``, ``--load``, ``--train_cnn``, ``--load_cnn``
+(which raises: not ported), ``--beam_size``, ``--shard_cache``,
+``--sweep``; for serve ``--port``, ``--max_batch``, ``--max_wait_ms``,
+``--serve_mode``, ``--serve_decode_depth``), so one config file and one
+override list drive both packages.  Train exits 1 when a checkpoint it
+depends on did not land, and 0 after a graceful SIGTERM/SIGINT stop
+(resume with ``--load``).  Eval prints each score as ``name: value``;
+``--sweep`` scores every checkpoint under save_dir and prints a ``step
+N: ...`` line for each.  Any other phase, and ``--supervise``, exits with
+"not ported yet".
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import List, Optional
 
 from .config import Config
 
-PORTED_PHASES = ("serve", "eval", "test")
+PORTED_PHASES = ("train", "serve", "eval", "test")
 
 # the reference's misspelled config keys, accepted like the JAX CLI does
 _REFERENCE_KEY_ALIASES = {
@@ -72,6 +75,11 @@ def build_config(argv: Optional[List[str]] = None):
         "--load_cnn", action="store_true",
         help="import a pretrained CNN (not ported yet: raises)",
     )
+    p.add_argument("--train_cnn", action="store_true", help="train: train the CNN too")
+    p.add_argument(
+        "--supervise", action="store_true",
+        help="restart a crashed run (not ported yet: exits)",
+    )
     p.add_argument("--beam_size", type=int, default=None)
     p.add_argument(
         "--shard_cache", default=None, choices=["auto", "on", "off"],
@@ -104,6 +112,8 @@ def build_config(argv: Optional[List[str]] = None):
         help="override any Config field, repeatable",
     )
     args = p.parse_args(argv)
+    if args.supervise:
+        raise SystemExit("sat_tpu_torch: --supervise is not ported yet; use python -m sat_tpu.cli")
     if args.sweep and (args.model_file or args.load):
         raise SystemExit(
             "--sweep scores every checkpoint under save_dir; it conflicts "
@@ -114,11 +124,14 @@ def build_config(argv: Optional[List[str]] = None):
         config = Config.load(args.config)
         if args.phase is not None:
             config = config.replace(phase=args.phase)
+        if args.train_cnn:
+            config = config.replace(train_cnn=True)
         if args.beam_size is not None:
             config = config.replace(beam_size=args.beam_size)
     else:
         config = Config(
             phase=args.phase if args.phase is not None else "train",
+            train_cnn=args.train_cnn,
             beam_size=args.beam_size if args.beam_size is not None else 3,
         )
     if args.shard_cache is not None:
@@ -168,9 +181,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         return serve(config, model_file=cli["model_file"])
 
     from . import runtime
-    from .utils import fileio
+    from .resilience import retry
 
-    fileio.configure_retries(config.io_retries, config.io_retry_base_s)
+    retry.configure(config.io_retries, config.io_retry_base_s)
+    if config.phase == "train":
+        from .resilience.lineage import CheckpointWriteError
+
+        state = runtime.setup_train_state(
+            config, load=cli["load"], model_file=cli["model_file"], load_cnn=cli["load_cnn"]
+        )
+        try:
+            runtime.train(config, state=state)
+        except CheckpointWriteError as e:
+            # the run trained, but a checkpoint it depends on did not land
+            print(f"sat_tpu_torch: WARNING: {e}", file=sys.stderr, flush=True)
+            return 1
+        # a graceful SIGTERM/SIGINT stop returns here too: exit 0, resume with --load
+        return 0
     if config.phase == "eval":
         if cli["sweep"]:
             sweep = runtime.evaluate_sweep(config)

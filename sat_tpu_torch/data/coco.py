@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set
 
 from ..utils.fileio import read_json
 from .tokenizer import tokenize
@@ -73,6 +73,16 @@ class CocoCaptions:
             ann
             for ann in self.dataset["annotations"]
             if len(tokenize(ann["caption"])) <= max_cap_len
+        ]
+        self._apply_ann_filter(keep)
+
+    def filter_by_words(self, vocab: Set[str]) -> None:
+        """Keep the annotations whose every token is in ``vocab`` (and the
+        images left with one)."""
+        keep = [
+            ann
+            for ann in self.dataset["annotations"]
+            if all(w in vocab for w in tokenize(ann["caption"]))
         ]
         self._apply_ann_filter(keep)
 

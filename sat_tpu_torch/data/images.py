@@ -104,7 +104,8 @@ class PrefetchDecodeError(RuntimeError):
 class PrefetchLoader:
     """Iterates ``dataset``'s batches of file names and yields dicts with
     'images' [B, S, S, 3] (uint8 RGB when the loader is raw, else float32
-    mean-subtracted) and 'files'.  A producer thread decodes each batch
+    mean-subtracted) and 'files' (and a training batch's 'word_idxs' and
+    'masks', passed through).  A producer thread decodes each batch
     in a pool of ``num_workers`` threads and keeps up to
     ``prefetch_depth`` ready batches in a bounded queue; a decode error
     is raised on the consumer's side."""
@@ -121,8 +122,12 @@ class PrefetchLoader:
         self.num_workers = num_workers
         self.prefetch_depth = max(1, prefetch_depth)
 
-    def _decode_batch(self, files, pool: ThreadPoolExecutor, batch_idx: int) -> dict:
-        files = [str(f) for f in files]
+    def _decode_batch(self, batch, pool: ThreadPoolExecutor, batch_idx: int) -> dict:
+        out = {}
+        if isinstance(batch, tuple):  # training: (files, word_idxs, masks)
+            batch, word_idxs, masks = batch
+            out = {"word_idxs": np.asarray(word_idxs, np.int32), "masks": np.asarray(masks, np.float32)}
+        files = [str(f) for f in batch]
         S = self.loader.size
         images = np.zeros((len(files), S, S, 3), np.uint8 if self.loader.raw else np.float32)
 
@@ -136,7 +141,7 @@ class PrefetchLoader:
             if exc is not None:
                 raise PrefetchDecodeError(files[i], batch_idx, i, exc) from exc
             images[i] = img
-        return {"images": images, "files": files}
+        return {"images": images, "files": files, **out}
 
     def __iter__(self) -> Iterator[dict]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
@@ -158,8 +163,8 @@ class PrefetchLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                    for batch_idx, files in enumerate(self.dataset):
-                        if not put(self._decode_batch(files, pool, batch_idx)):
+                    for batch_idx, batch in enumerate(self.dataset):
+                        if not put(self._decode_batch(batch, pool, batch_idx)):
                             return
             except BaseException as e:  # re-raised on the consumer side
                 error.append(e)

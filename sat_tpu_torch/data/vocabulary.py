@@ -72,6 +72,11 @@ class Vocabulary:
         f -= f.max()
         self.word_frequencies = f
 
+    def process_sentence(self, sentence: str) -> List[int]:
+        """Tokenize and map to vocabulary indices (every token must be in
+        the vocabulary: training captions are filtered by it first)."""
+        return [self.word2idx[w] for w in tokenize(sentence)]
+
     def get_sentence(self, idxs: Sequence[int]) -> str:
         """Indices → detokenized sentence, truncated at the first '.'.
         Index 0 (``<start>``, doubling as pad) and out-of-range indices

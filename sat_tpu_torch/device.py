@@ -3,6 +3,11 @@
 Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` they take ``cuda`` and raise when no card is visible.  There is
 no silent move to the CPU.
+
+Resolving a CUDA device turns TF32 off for cuDNN convolutions and cuBLAS
+matmuls, process-wide, so float32 means float32 on the card (bf16 work
+ignores both switches).  The switches are set, not toggled around a call,
+so no thread can see them flipped under it.
 """
 
 from __future__ import annotations
@@ -21,4 +26,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"sat_tpu_torch: unsupported device {dev}")
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     return dev

@@ -33,15 +33,23 @@ def vgg16(
     cnn: Dict[str, Dict[str, torch.Tensor]],
     images: torch.Tensor,
     dtype: torch.dtype,
-) -> torch.Tensor:
+    with_activity: bool = False,
+):
     """images [B, H, W, 3] float32 (mean-subtracted) → contexts [B, N, 512]
-    float32.  ``cnn[name]`` holds ``weight`` (OIHW) and ``bias``."""
+    float32.  ``cnn[name]`` holds ``weight`` (OIHW) and ``bias``.
+
+    ``with_activity``: also return Σ|relu output| over the 13 convs (the
+    conv L1 activity the JAX package's ``Conv`` sows), as (contexts, l1)."""
     # the NCHW view of contiguous NHWC memory is already channels_last
     x = images.permute(0, 3, 1, 2).to(dtype)
+    activity = []
     for name, _features, pool_after in VGG_LAYERS:
         p = cnn[name]
         x = conv2d_same(x, p["weight"].to(dtype), p["bias"].to(dtype))
+        if with_activity:
+            activity.append(x.float().abs().sum())
         if pool_after:
             x = max_pool2d(x)
     b = x.shape[0]
-    return x.permute(0, 2, 3, 1).reshape(b, -1, DIM_CTX).float()
+    contexts = x.permute(0, 2, 3, 1).reshape(b, -1, DIM_CTX).float()
+    return (contexts, sum(activity[1:], activity[0])) if with_activity else contexts

@@ -1,5 +1,5 @@
-"""NN primitives of the encoder — the port of ``sat_tpu.nn.layers``' inference
-half (``Conv``, ``max_pool2d``).
+"""NN primitives — the port of ``sat_tpu.nn.layers``: the encoder's SAME
+conv and max pool, inverted dropout and the L2 regularization sum.
 
 These functions take NCHW tensors (any memory format; the encoder keeps
 ``channels_last``).  Padding follows Flax's ``padding="SAME"``, which is
@@ -67,3 +67,52 @@ def max_pool2d(
     pads = same_padding(x.shape[-2:], (pool_size, pool_size), (strides, strides))
     x, padding = _apply(x, pads, float("-inf"))
     return F.max_pool2d(x, pool_size, strides, padding)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout, ``where(mask, x / keep, 0)`` with a keep mask drawn
+    from ``generator`` (which must live on ``x``'s device).  The JAX
+    package's ``dropout``; ``F.dropout`` takes no generator, so a resumed
+    run could not replay its masks."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def regularization_loss(params, fc_scale: float, conv_scale: float, train_cnn: bool) -> torch.Tensor:
+    """0.5 · scale · Σw² per kernel — TF's l2_regularizer, as the JAX
+    package accounts it: rank-2 ``kernel``/``embedding``/``weights`` leaves
+    are fc kernels; rank-4 conv ``weight`` leaves count only when the CNN
+    trains; anything under ``lstm`` and every bias never counts."""
+    terms = []
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, f"{path}/{key}")
+                continue
+            if "lstm" in f"{path}/{key}".lower():
+                continue
+            if key not in ("kernel", "embedding", "weights", "weight"):
+                continue
+            w = value.float()
+            if w.dim() == 4:
+                if train_cnn and conv_scale > 0:
+                    terms.append(0.5 * conv_scale * (w * w).sum())
+            elif w.dim() >= 2 and fc_scale > 0:
+                terms.append(0.5 * fc_scale * (w * w).sum())
+
+    walk(params, "")
+    if not terms:
+        return torch.zeros((), device=next(_leaves(params)).device)
+    return sum(terms[1:], terms[0])
+
+
+def _leaves(node):
+    for value in node.values():
+        if isinstance(value, dict):
+            yield from _leaves(value)
+        else:
+            yield value

@@ -284,6 +284,17 @@ def _check(t1, t2, w2, contexts) -> None:
         )
 
 
+def _refuse_grad(*inputs: torch.Tensor) -> None:
+    """Raise when autograd would need the kernel's gradient: its outputs
+    carry no ``grad_fn``, so the gradients would silently come out zero."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        raise RuntimeError(
+            "fused_attend: the CUDA kernel has no backward (as the JAX package's Pallas "
+            "call has none); differentiate through the plain attention (the decoder's "
+            "training path), or call it under torch.no_grad()"
+        )
+
+
 def fused_attend(
     t1: torch.Tensor,
     t2: torch.Tensor,
@@ -300,8 +311,10 @@ def fused_attend(
 
     On a CUDA tensor: one launch of the CUDA kernel on the current stream
     (counted in ``fused_attend.launches``, or ``masked_launches`` with a
-    ``row_mask``); on a CPU tensor: the plain version.  Nothing falls
-    back from the one to the other."""
+    ``row_mask``); it raises when autograd would need its gradient (grad
+    enabled and an input requiring grad), since the kernel has no
+    backward.  On a CPU tensor: the plain version.  Nothing falls back
+    from the one to the other."""
     if compute_dtype not in _MODES:
         raise ValueError(f"fused_attend: compute_dtype {compute_dtype!r} not in {sorted(_MODES)}")
     if t1.device.type == "cpu":
@@ -311,6 +324,7 @@ def fused_attend(
     _check(t1, t2, w2, contexts)
     if row_mask is not None:
         _check_mask(row_mask, t1)
+    _refuse_grad(t1, t2, w2, contexts)
     from . import build
 
     lib = build.load("fused_attend")

@@ -1,5 +1,5 @@
-"""Checkpoint lineage — the port's copy of the read side of
-``sat_tpu.resilience.lineage``, plus the two writes a serving fixture needs.
+"""Checkpoint lineage — the port's copy of ``sat_tpu.resilience.lineage``
+(without the rejected-step ledger).
 
 Layout of a save_dir (the JAX package's)::
 
@@ -23,6 +23,11 @@ LAST_GOOD_NAME = "LAST_GOOD"
 SIDECAR_SUFFIX = ".sha256"
 
 _STEP_RE = re.compile(r"(\d+)\.npz")
+
+
+class CheckpointWriteError(RuntimeError):
+    """A checkpoint the training loop depended on did not land (a queued
+    async write failed, or the final save failed verification)."""
 
 
 def _atomic_write_text(path: str, text: str) -> None:
@@ -65,14 +70,17 @@ def file_sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def write_sidecar(ckpt_path: str, vocab: Optional[dict] = None) -> str:
+def write_sidecar(
+    ckpt_path: str, vocab: Optional[dict] = None, topology: Optional[dict] = None
+) -> str:
     """Hash the checkpoint into its sidecar; ``vocab`` (the vocabulary
-    fingerprint) rides a JSON line after the digest, as in the JAX
-    package."""
+    fingerprint) and ``topology`` (the devices it was written from) ride
+    one JSON line after the digest, as in the JAX package."""
     digest = file_sha256(ckpt_path)
     lines = f"{digest}  {os.path.basename(ckpt_path)}\n"
-    if vocab:
-        lines += json.dumps({"vocab": vocab}, sort_keys=True) + "\n"
+    meta = {k: v for k, v in (("topology", topology), ("vocab", vocab)) if v}
+    if meta:
+        lines += json.dumps(meta, sort_keys=True) + "\n"
     _atomic_write_text(sidecar_path(ckpt_path), lines)
     return digest
 
@@ -146,3 +154,54 @@ def last_good_checkpoint(save_dir: str) -> Optional[str]:
             flush=True,
         )
     return None
+
+
+def apply_retention(save_dir: str, keep: int) -> List[str]:
+    """Keep the newest ``keep`` checkpoints and the ``LAST_GOOD`` target,
+    delete the rest with their sidecars (``keep`` <= 0 keeps everything).
+    Returns the deleted paths."""
+    if keep <= 0:
+        return []
+    steps = checkpoint_steps(save_dir)
+    protect = set(steps[-keep:])
+    pointed = last_good_step(save_dir)
+    if pointed is not None:
+        protect.add(pointed)
+    deleted = []
+    for step in steps:
+        if step in protect:
+            continue
+        path = os.path.join(save_dir, f"{step}.npz")
+        for victim in (path, sidecar_path(path)):
+            try:
+                os.unlink(victim)
+                deleted.append(victim)
+            except FileNotFoundError:
+                pass
+            except OSError as e:  # retention must never kill training
+                print(f"sat_tpu_torch: retention could not delete {victim}: {e}",
+                      file=sys.stderr, flush=True)
+    return deleted
+
+
+def finalize_save(save_dir: str, path: str, step: int, healthy: bool, keep: int) -> bool:
+    """The lineage tail of a save: (sidecar when none) → verify →
+    ``LAST_GOOD`` advanced only when the file verified and the run was
+    ``healthy`` → retention.  Returns whether the file verified; a failed
+    verify is reported, not raised: the previous ``LAST_GOOD`` stays the
+    recovery point.  An existing sidecar is trusted, never rewritten: it
+    was hashed right after the write, and hashing again would bless any
+    rot since."""
+    if not os.path.isfile(sidecar_path(path)):
+        write_sidecar(path)
+    ok, reason = verify_checkpoint(path)
+    if not ok:
+        print(f"sat_tpu_torch: checkpoint {path} FAILED post-write verification ({reason}); "
+              "LAST_GOOD not advanced", file=sys.stderr, flush=True)
+    elif not healthy:
+        print(f"sat_tpu_torch: checkpoint {path} written while metrics were anomalous; "
+              "LAST_GOOD not advanced", file=sys.stderr, flush=True)
+    else:
+        mark_last_good(save_dir, step)
+    apply_retention(save_dir, keep)
+    return ok

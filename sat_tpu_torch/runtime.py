@@ -1,61 +1,81 @@
-"""Eval and test runtimes — the port of the decoding half of ``sat_tpu.runtime``.
+"""Train, eval and test runtimes — the port of ``sat_tpu.runtime``.
 
+* ``train``: the epoch × batch loop over ``prepare_train_data``, one
+  ``train.step`` a batch with its dropout generator keyed on (seed + 1,
+  global step), mid-epoch resume by ``DataSet.seek``, metrics every
+  ``log_every`` steps (the loop's one host sync) into ``metrics.jsonl``
+  and tfevents, checkpoints every ``save_period`` steps through the
+  async writer, the anomaly sentinel (warn, skip, rollback to
+  ``LAST_GOOD``), graceful SIGTERM/SIGINT and the progress watchdog;
 * ``evaluate``: beam-search every image of the eval split, write
   ``results.json`` and score it with BLEU-1..4, METEOR, ROUGE-L and CIDEr;
   ``evaluate_sweep`` scores every checkpoint under ``save_dir``;
 * ``test``: caption every JPEG of a directory into ``results.csv`` and
   captioned JPEGs;
-* with ``save_attention_maps``, both also write per-image attention panels
-  and ``attn.jsonl`` / ``attn.html``.
+* with ``save_attention_maps``, eval and test also write per-image
+  attention panels and ``attn.jsonl`` / ``attn.html``.
 
-``decode_dataset`` drives them: the prefetching JPEG loader, a host→device
-feed one batch ahead (pinned host batches, ``non_blocking`` copies), then
-per batch ``captioner.encode`` and the monolithic ``beam_search`` (whose
-attention step is the CUDA ``fused_attend`` on the card).  Batch n+1 is
-dispatched before batch n is drained, as in the JAX package; here the
-search syncs with the host once a step, so the two do not overlap yet.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+``decode_dataset`` drives eval and test: the prefetching JPEG loader, a
+host→device feed one batch ahead (pinned host batches, ``non_blocking``
+copies), then per batch ``captioner.encode`` and the monolithic
+``beam_search`` (whose attention step is the CUDA ``fused_attend`` on the
+card).  Batch n+1 is dispatched before batch n is drained, as in the JAX
+package; here the search syncs with the host once a step, so the two do
+not overlap yet.  Entry points run on the card unless the caller passes
+``device="cpu"``.
 
-Not ported yet, and raising ``NotImplementedError`` (:func:`check_ported`):
-mesh and context-parallel decode, ``shard_cache="on"`` (``"auto"`` and
-``"off"`` decode live: a cached row is bitwise the live decode's),
-``telemetry``, ``blackbox`` and the profiler window (``profile_dir``), a
-``.npy`` reference checkpoint, ``load_cnn``, and the random
-initialization of a state that loads no checkpoint.  The JAX package's quarantine is not ported: a JPEG
-that cannot be decoded raises ``PrefetchDecodeError``.
+Not ported yet, and raising ``NotImplementedError`` (:func:`check_ported`,
+:func:`check_train_ported`): mesh and context-parallel runs,
+``shard_cache="on"`` (``"auto"`` and ``"off"`` decode live: a cached row
+is bitwise the live decode's), ``telemetry``, ``blackbox``, the profiler
+window (``profile_dir``), a ``.npy`` reference checkpoint and
+``load_cnn``; for training also ``remat_decoder``, ``remat_cnn``,
+``diag_level``, ``fleet_telemetry`` and the quarantine.  A JPEG that
+cannot be decoded raises ``PrefetchDecodeError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import Config
-from .data.dataset import DataSet, prepare_eval_data, prepare_test_data
+from .data.dataset import DataSet, prepare_eval_data, prepare_test_data, prepare_train_data
 from .data.images import ImageLoader, PrefetchLoader
 from .data.vocabulary import Vocabulary, vocab_fingerprint
 from .device import resolve_device
 from .evalcap.eval import CocoEvalCap
-from .models.captioner import check_encoder, encode
+from .models.captioner import check_encoder, encode, init_params
 from .ops.beam_search import BeamResult, beam_search
-from .resilience import lineage
+from .resilience import lineage, retry
+from .resilience.lineage import CheckpointWriteError
+from .resilience.preempt import GracefulShutdown
+from .resilience.sentinel import AnomalySentinel
+from .resilience.watchdog import Watchdog, deadlines_from_config
 from .train.checkpoint import (
-    ServingState, check_vocab, compute_params, load_flat, state_from_flat, to_device, walk_back,
+    AsyncCheckpointWriter, ServingState, check_vocab, compute_params, load_flat,
+    restore_checkpoint, save_checkpoint, state_from_flat, to_device, walk_back,
 )
+from .train.step import TrainState, create_train_state, make_train_step, step_generator
 from .utils.fileio import atomic_write
+from .utils.progress import Progress
+from .utils.summary import SummaryWriter
 
 
 def check_ported(config: Config) -> None:
-    """Raise on eval/test knobs whose subsystem is not ported yet."""
+    """Raise on eval/test (and train) knobs whose subsystem is not ported yet."""
     check_encoder(config)
     if int(np.prod(config.mesh_shape)) > 1 or config.context_parallel > 1:
         raise NotImplementedError(
-            f"mesh decode (mesh_shape={tuple(config.mesh_shape)}, context_parallel="
-            f"{config.context_parallel}) is not ported to sat_tpu_torch yet (only one device)"
+            f"mesh and context-parallel runs (mesh_shape={tuple(config.mesh_shape)}, "
+            f"context_parallel={config.context_parallel}) are not ported to sat_tpu_torch "
+            "yet (only one device)"
         )
     # the other telemetry knobs act only with telemetry on, in both packages
     unported = {
@@ -69,6 +89,31 @@ def check_ported(config: Config) -> None:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to sat_tpu_torch yet (only "
                 f"{' or '.join(repr(p) for p in ported)})"
+            )
+
+
+def check_train_ported(config: Config) -> None:
+    """Raise on train knobs whose subsystem is not ported yet.
+
+    ``rng_impl`` is accepted and has no effect: it picks JAX's random-bit
+    generator, and torch draws dropout masks with its own (Philox on the
+    card), so the port's masks never equal the JAX package's bits."""
+    check_ported(config)
+    if config.remat_decoder or config.remat_cnn:
+        raise NotImplementedError(
+            f"remat_decoder={config.remat_decoder}, remat_cnn={config.remat_cnn}: "
+            "rematerialization is not ported to sat_tpu_torch yet"
+        )
+    unported = {
+        "diag_level": (config.diag_level, "off"),
+        "fleet_telemetry": (config.fleet_telemetry, False),
+        "quarantine_ledger": (config.quarantine_ledger, ""),
+        "quarantine_max_fraction": (config.quarantine_max_fraction, 0.5),
+    }
+    for name, (value, ported) in unported.items():
+        if value != ported:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to sat_tpu_torch yet (only {ported!r})"
             )
 
 
@@ -92,15 +137,19 @@ def device_prefetch(loader, device: torch.device):
     """Host→device feed one batch ahead: the copy of batch k+1 is enqueued
     before batch k is handed on.  On the card each host batch is pinned
     and copied with ``non_blocking``, so the copy overlaps the device's
-    work on the batch before it.  'images' becomes a device tensor;
-    'files' passes through."""
+    work on the batch before it.  Every array ('images', and a training
+    batch's 'word_idxs' and 'masks') becomes a device tensor; 'files'
+    passes through."""
     pin = device.type == "cuda"
 
-    def put(batch):
-        images = torch.from_numpy(batch["images"])
+    def move(value):
+        t = torch.from_numpy(value)
         if pin:
-            images = images.pin_memory()
-        return {**batch, "images": images.to(device, non_blocking=pin)}
+            t = t.pin_memory()
+        return t.to(device, non_blocking=pin)
+
+    def put(batch):
+        return {k: move(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()}
 
     pending = None
     it = iter(loader)
@@ -127,24 +176,16 @@ def setup_state(
     load_cnn: bool = False,
     device=None,
 ) -> ServingState:
-    """The checkpoint's params on ``device`` (the card unless "cpu").
+    """Decoding params on ``device`` (the card unless "cpu").
 
-    An explicit ``model_file`` is loaded as-is; otherwise the newest
-    checkpoint under ``save_dir`` that verifies and loads.  The configured
+    An explicit ``model_file`` is loaded as-is; with ``load`` the newest
+    checkpoint under ``save_dir`` that verifies and loads; with neither,
+    a random initialization from ``config.seed``.  The configured
     vocabulary must match the one the checkpoint's sidecar attests."""
     dev = resolve_device(device)
-    if load_cnn:
-        raise NotImplementedError("load_cnn (a pretrained CNN import) is not ported to sat_tpu_torch yet")
+    _check_load(load_cnn, model_file)
     if not (load or model_file):
-        raise NotImplementedError(
-            "a state that loads no checkpoint (random initialization) is not ported "
-            "to sat_tpu_torch yet"
-        )
-    if model_file and model_file.endswith(".npy"):
-        raise NotImplementedError(
-            f"{model_file}: importing the reference's .npy checkpoint is not ported "
-            "to sat_tpu_torch yet (only <step>.npz)"
-        )
+        return ServingState(params=init_params(config, torch.Generator().manual_seed(config.seed), dev), step=0)
     expect = vocab_fingerprint(config.vocabulary_file, config.vocabulary_size)
     if model_file:
         check_vocab(model_file, expect)
@@ -154,6 +195,229 @@ def setup_state(
     state = state_from_flat(flat, config, dev, source)
     print(f"checkpoint {source} loaded (step {state.step}).")
     return state
+
+
+def _check_load(load_cnn: bool, model_file: Optional[str]) -> None:
+    if load_cnn:
+        raise NotImplementedError("load_cnn (a pretrained CNN import) is not ported to sat_tpu_torch yet")
+    if model_file and model_file.endswith(".npy"):
+        raise NotImplementedError(
+            f"{model_file}: importing the reference's .npy checkpoint is not ported "
+            "to sat_tpu_torch yet (only <step>.npz)"
+        )
+
+
+def setup_train_state(
+    config: Config,
+    load: bool = False,
+    model_file: Optional[str] = None,
+    load_cnn: bool = False,
+    seed: Optional[int] = None,
+    device=None,
+) -> TrainState:
+    """A train state on ``device`` (the card unless "cpu"): parameters drawn
+    from ``seed`` (default ``config.seed``) and fresh slots, then, with
+    ``load`` or ``model_file``, a checkpoint restored over them (the
+    vocabulary fingerprint checked; a file that loads no tensor raises)."""
+    dev = resolve_device(device)
+    _check_load(load_cnn, model_file)
+    seed = config.seed if seed is None else seed
+    state = create_train_state(config, torch.Generator().manual_seed(seed), dev)
+    if load or model_file:
+        state, count = restore_checkpoint(
+            state, model_file=model_file, save_dir=config.save_dir,
+            expect_vocab=vocab_fingerprint(config.vocabulary_file, config.vocabulary_size),
+        )
+        if count == 0:
+            raise ValueError(f"checkpoint {model_file or config.save_dir} restored 0 tensors")
+        print(f"{count} tensors loaded from checkpoint (step {state.step}).")
+    return state
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def _watched_iter(it, wd: Watchdog, name: str):
+    """Every fetch from ``it`` inside a watchdog phase guard, so a feed
+    that stops producing trips the ``data_wait`` deadline."""
+    it = iter(it)
+    while True:
+        with wd.phase(name):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield item
+
+
+def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The metrics as host floats, in one device→host copy."""
+    keys = list(metrics)
+    values = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
+    return dict(zip(keys, values))
+
+
+def train(
+    config: Config,
+    state: Optional[TrainState] = None,
+    dataset: Optional[DataSet] = None,
+    seed: Optional[int] = None,
+    device=None,
+) -> TrainState:
+    """The epoch × batch training loop; returns the final state.
+
+    ``seed`` (default ``config.seed``) drives the batch order, the
+    parameter init of a fresh state and the dropout masks: step ``s``
+    draws its masks from ``step_generator(seed, s)``, so a run resumed
+    from a checkpoint of step ``s`` replays the batches and masks of the
+    uninterrupted run.  The final checkpoint is saved after the loop and
+    must verify (``CheckpointWriteError`` otherwise)."""
+    check_train_ported(config)
+    dev = resolve_device(device)
+    if seed is None:
+        seed = config.seed
+    if dataset is None:
+        dataset = prepare_train_data(config if seed == config.seed else config.replace(seed=seed))
+    if dataset.count == 0:
+        raise ValueError(
+            "training dataset is empty after preparation — every caption was filtered out "
+            "(max_caption_length and vocabulary filters) or the caption file has none"
+        )
+    if state is None:
+        state = setup_train_state(config, seed=seed, device=dev)
+    train_step = make_train_step(config)
+    loader = make_loader(config, dataset)
+    retry.configure(config.io_retries, config.io_retry_base_s)
+    sentinel = AnomalySentinel(config.anomaly_policy, config.anomaly_spike_factor)
+    async_writer = AsyncCheckpointWriter() if config.async_checkpoint else None
+    ckpt_save = async_writer.save if async_writer else save_checkpoint
+    wd = Watchdog(
+        deadlines_from_config(config),
+        poll_s=config.watchdog_interval or 1.0,
+        grace_s=config.watchdog_grace_s,
+        dump_path=os.path.join(
+            config.telemetry_dir or os.path.join(config.summary_dir, "telemetry"),
+            "watchdog_stacks.txt",
+        ),
+        pre_abort=async_writer.flush if async_writer else None,
+    )
+    step = state.step
+    stopped = False
+    final_path: Optional[str] = None
+    # the ExitStack drains the async writer last (after the summary writer
+    # closes), on success and on exception alike
+    with contextlib.ExitStack() as stack, SummaryWriter(config.summary_dir) as writer, \
+            GracefulShutdown() as shutdown:
+        if async_writer:
+            stack.callback(async_writer.close)
+        if config.watchdog_interval > 0:
+            # stops before the writer drains, so a slow drain is no wedge
+            stack.callback(wd.stop)
+            wd.start()
+        while True:  # re-entered only by a sentinel rollback
+            rollback = False
+            # batch order is a function of (seed, epoch), so the global
+            # step is the cursor: resume exactly where the checkpoint was
+            start_epoch, skip_batches = divmod(step, dataset.num_batches)
+            if start_epoch < config.num_epochs:
+                dataset.seek(start_epoch, skip_batches)
+            for epoch in range(start_epoch, config.num_epochs):
+                bar = Progress(
+                    dataset.num_batches, desc=f"epoch {epoch + 1}/{config.num_epochs}",
+                    initial=skip_batches if epoch == start_epoch else 0,
+                )
+                feed = device_prefetch(loader, dev)
+                try:
+                    for batch in _watched_iter(feed, wd, "data_wait"):
+                        with wd.phase("step"):
+                            if (config.max_steps and step >= config.max_steps) or shutdown.stop_requested:
+                                stopped = True
+                                break
+                            with wd.phase("dispatch"):
+                                state, metrics = train_step(state, batch, step_generator(seed, step, dev))
+                            step += 1
+                            if step % config.log_every == 0:
+                                host = _fetch(metrics)  # the loop's one host sync
+                                writer.scalars(step, host)
+                                if sentinel.check(step, host) == "rollback":
+                                    rollback = True
+                                    break
+                            if config.var_summary_period and step % config.var_summary_period == 0:
+                                writer.variable_stats(step, state.params)
+                            if config.save_period and step % config.save_period == 0 and not sentinel.suppress_save:
+                                with wd.phase("checkpoint"):
+                                    ckpt_save(state, config, healthy=sentinel.healthy)
+                            bar.update()
+                finally:
+                    feed.close()
+                bar.close()
+                if stopped or rollback:
+                    break
+                print(f"epoch {epoch + 1}/{config.num_epochs} done (step {step})")
+            if rollback:
+                if async_writer:
+                    # the save that blessed LAST_GOOD may still be queued
+                    async_writer.flush()
+                restored = _restore_last_good(state, config, step)
+                if restored is None:
+                    sentinel.policy = "warn"  # nothing to roll back to
+                else:
+                    state = restored
+                    sentinel.note_rolled_back()
+                continue
+            break
+        if sentinel.suppress_save:
+            print(
+                "sat_tpu_torch: final checkpoint suppressed — metrics were anomalous under "
+                f"anomaly_policy=skip ({sentinel.last_reason})",
+                file=sys.stderr, flush=True,
+            )
+        else:
+            # a second (force-kill) signal waits until the final write
+            # has landed and verified
+            with shutdown.defer():
+                final_path = ckpt_save(state, config, healthy=sentinel.healthy)
+                if async_writer:
+                    async_writer.flush()
+        if shutdown.stop_requested:
+            print(
+                f"sat_tpu_torch: stopped on {shutdown.signal_name} at step {step}; final "
+                "checkpoint flushed — relaunch with --load to resume",
+                file=sys.stderr, flush=True,
+            )
+    if final_path is not None:
+        ok, reason = lineage.verify_checkpoint(final_path)
+        if not ok:
+            raise CheckpointWriteError(f"final checkpoint {final_path} did not land: {reason}")
+    return state
+
+
+def _restore_last_good(state: TrainState, config: Config, step: int) -> Optional[TrainState]:
+    """Sentinel rollback: the newest verifiable ``LAST_GOOD`` checkpoint
+    loaded into the (poisoned) state, keeping the loop's step, so the
+    loader moves past the poison step instead of replaying it (the same
+    masks would reproduce the same divergence).  None when nothing
+    verifiable exists."""
+    path = lineage.last_good_checkpoint(config.save_dir)
+    if path is None:
+        print(
+            "sat_tpu_torch: rollback requested but save_dir holds no verifiable LAST_GOOD "
+            f"checkpoint ({config.save_dir})",
+            file=sys.stderr, flush=True,
+        )
+        return None
+    restored, count = restore_checkpoint(state, model_file=path)
+    if count == 0:
+        print(f"sat_tpu_torch: rollback restore from {path} loaded 0 tensors", file=sys.stderr, flush=True)
+        return None
+    print(
+        f"sat_tpu_torch: rolled back to {path} (step {restored.step}); resuming forward at "
+        f"step {step}, skipping the poison window",
+        file=sys.stderr, flush=True,
+    )
+    return restored._replace(step=step)
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,8 @@ def check_ported(config: Config) -> None:
         "tenants": (config.tenants, ""),
         "model_reload": (config.model_reload, 0.0),
         "serve_wedge_timeout_ms": (config.serve_wedge_timeout_ms, 0.0),
+        "blackbox": (config.blackbox, False),
+        "trace_export": (config.trace_export, ""),
     }
     for name, (value, ported) in unported.items():
         if value != ported:

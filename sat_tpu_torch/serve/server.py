@@ -37,7 +37,7 @@ from ..config import Config
 from ..data.vocabulary import Vocabulary
 from ..ops.fused_attend import fused_attend
 from .batcher import ContinuousBatcher, MicroBatcher, Rejected
-from .engine import ServeEngine, load_serving_state
+from .engine import ServeEngine, check_ported, load_serving_state
 from .slot_pool import PagedSlotPool
 
 
@@ -239,7 +239,9 @@ def serve(config: Config, model_file: Optional[str] = None, device=None) -> int:
     """CLI entry point: ``python -m sat_tpu_torch.cli --phase serve``.
 
     Lineage load → warm every bucket (batch mode) or the slot pool
-    (continuous mode) → listen → drain on SIGTERM/SIGINT."""
+    (continuous mode) → listen → drain on SIGTERM/SIGINT.  A knob not
+    ported yet raises before anything loads."""
+    check_ported(config)
     vocabulary = Vocabulary(config.vocabulary_size, config.vocabulary_file)
     state, source = load_serving_state(config, model_file=model_file, device=device)
     engine = ServeEngine(config, state, vocabulary, device=device)

@@ -1,5 +1,4 @@
-"""Checkpoint read side and the weight bridge — the port of the serving half
-of ``sat_tpu.train.checkpoint``.
+"""Checkpoints and the weight bridge — the port of ``sat_tpu.train.checkpoint``.
 
 Both packages share one on-disk format: a flat ``<step>.npz`` of
 slash-joined names (``params/cnn/conv1_1/conv/kernel``,
@@ -19,6 +18,15 @@ this configuration does not have raises, and so does a missing one.
 verifies, :func:`state_from_flat` loads one as a :class:`ServingState`,
 and :func:`compute_params` makes the copy of the params that every
 decoding entry point (serving, eval, test) runs on.
+
+The training side: :func:`state_to_flat` snapshots a ``TrainState``
+(params, optax-layout optimizer slots under ``optimizer/``, and
+``global_step``) into numpy arrays that own their bytes;
+:func:`save_checkpoint` and :class:`AsyncCheckpointWriter` write it as an
+atomic npz with the ``config.json`` sidecar and the lineage tail (sha256
+sidecar with the vocabulary and a one-device topology, verify,
+``LAST_GOOD``, retention); :func:`restore_checkpoint` loads a file into
+a ``TrainState`` in place, skipping names or shapes it does not have.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import torch
 from ..config import Config
 from ..models.vgg16 import VGG_LAYERS
 from ..resilience import lineage
+from ..resilience.lineage import CheckpointWriteError
+from ..resilience.retry import retry_io
+from ..utils.fileio import atomic_write
 
 Params = Dict[str, Any]
 
@@ -130,30 +141,71 @@ def params_from_flat(
     return params
 
 
+def named_leaves(node, prefix: str):
+    """(flat name, tensor, is conv kernel) of every tensor under ``node``
+    (nested dicts and lists), named as the JAX package names it: list
+    items by index, a conv layer's ``weight`` (OIHW) and ``bias`` as
+    ``conv/kernel`` (HWIO there) and ``conv/bias``."""
+    conv = isinstance(node, dict) and "weight" in node
+    for key, value in enumerate(node) if isinstance(node, list) else node.items():
+        if isinstance(value, (dict, list)):
+            yield from named_leaves(value, f"{prefix}{key}/")
+        elif conv:
+            yield f"{prefix}conv/{'kernel' if key == 'weight' else key}", value, key == "weight"
+        else:
+            yield f"{prefix}{key}", value, False
+
+
+def _host(t: torch.Tensor, conv: bool) -> np.ndarray:
+    """A numpy copy that owns its bytes, in the JAX layout.  Never a view:
+    a snapshot handed to the writer thread must not change when the next
+    step updates the parameter in place."""
+    t = t.detach()
+    if conv:
+        t = t.permute(2, 3, 1, 0)
+    return t.to("cpu", memory_format=torch.contiguous_format, copy=True).numpy()
+
+
 def params_to_flat(params: Params) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_flat`: JAX flat names → float32
     numpy arrays in the JAX layout."""
-    flat: Dict[str, np.ndarray] = {}
-    for layer, p in params["cnn"].items():
-        if "weight" in p:
-            flat[f"params/cnn/{layer}/conv/kernel"] = p["weight"].detach().cpu().permute(2, 3, 1, 0).numpy()
-        if "bias" in p:
-            flat[f"params/cnn/{layer}/conv/bias"] = p["bias"].detach().cpu().numpy()
+    return {name: _host(t, conv) for name, t, conv in named_leaves(params, "params/")}
 
-    def walk(node, prefix):
-        for key, value in node.items():
-            if isinstance(value, dict):
-                walk(value, f"{prefix}{key}/")
-            else:
-                flat[f"{prefix}{key}"] = value.detach().cpu().numpy()
 
-    walk(params["decoder"], "params/decoder/")
+def state_to_flat(state) -> Dict[str, np.ndarray]:
+    """``TrainState`` → flat dict: ``params/``, ``optimizer/`` (optax's
+    chain state: the slots of the trainable sub-dict) and ``global_step``,
+    every array a copy."""
+    flat = params_to_flat(state.params)
+    flat.update({name: _host(t, conv) for name, t, conv in named_leaves(state.opt_state, "optimizer/")})
+    flat["global_step"] = np.asarray(state.step, np.int32)
     return flat
 
 
+def assign_flat(node, prefix: str, flat: Dict[str, np.ndarray]) -> int:
+    """Copy every entry of ``flat`` whose name and (JAX-layout) shape match
+    a tensor under ``node`` into it, in place; returns how many did."""
+    count = 0
+    with torch.no_grad():
+        for name, t, conv in named_leaves(node, prefix):
+            if name not in flat:
+                continue
+            value = torch.from_numpy(np.asarray(flat[name]))
+            if conv:
+                value = value.permute(3, 2, 0, 1)
+            if tuple(value.shape) != tuple(t.shape):
+                continue
+            t.copy_(value.to(t.dtype))
+            count += 1
+    return count
+
+
 def load_flat(path: str) -> Dict[str, np.ndarray]:
-    with np.load(path, allow_pickle=False) as z:
-        return {k: z[k] for k in z.files}
+    def read() -> Dict[str, np.ndarray]:
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+
+    return retry_io(read, desc=f"read checkpoint {path}")
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:
@@ -274,3 +326,153 @@ def to_device(node, device):
     if isinstance(node, dict):
         return {k: to_device(v, device) for k, v in node.items()}
     return node.to(device)
+
+
+# ---------------------------------------------------------------------------
+# training: save and restore
+# ---------------------------------------------------------------------------
+
+
+def _topology(state) -> Dict[str, Any]:
+    """The one-device topology recorded in the lineage sidecar."""
+    device = next(named_leaves(state.params, ""))[1].device
+    return {
+        "device_count": 1,
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "process_count": 1,
+        "mesh_shape": [1],
+        "mesh_axes": ["data"],
+    }
+
+
+def _write_flat(
+    flat: Dict[str, np.ndarray], path: str, config: Config, save_dir: str,
+    topology: Dict[str, Any], healthy: bool = True,
+) -> None:
+    """The disk half of a save: atomic npz and ``config.json`` sidecar,
+    then the lineage tail — sha256 sidecar (with the vocabulary
+    fingerprint and the topology), post-write verify, ``LAST_GOOD``
+    advanced only when the verify passed and the run was ``healthy``, and
+    keep-N retention."""
+    from ..data.vocabulary import vocab_fingerprint
+
+    step = int(flat["global_step"])
+    retry_io(
+        lambda: atomic_write(path, "wb", lambda f: np.savez(f, **flat)),
+        desc=f"write checkpoint {path}",
+    )
+    # hash now, while the file is what was serialized
+    try:
+        vocab = vocab_fingerprint(config.vocabulary_file, config.vocabulary_size)
+    except Exception:
+        vocab = None  # attestation is best-effort; the save is not
+    lineage.write_sidecar(path, vocab=vocab, topology=topology)
+    retry_io(
+        lambda: config.replace(global_step=step).save(os.path.join(save_dir, "config.json")),
+        desc=f"write checkpoint config {save_dir}",
+    )
+    lineage.finalize_save(save_dir, path, step, healthy=healthy, keep=config.keep_checkpoints)
+
+
+def save_checkpoint(state, config: Config, save_dir: Optional[str] = None, healthy: bool = True) -> str:
+    """Write ``<global_step>.npz`` and ``config.json`` under save_dir;
+    ``healthy=False`` (the sentinel saw non-finite metrics) writes the
+    file but withholds the ``LAST_GOOD`` blessing."""
+    save_dir = save_dir or config.save_dir
+    flat = state_to_flat(state)
+    path = os.path.join(save_dir, f"{int(flat['global_step'])}.npz")
+    _write_flat(flat, path, config, save_dir, _topology(state), healthy=healthy)
+    return path
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint writes overlapped with training.  ``save`` snapshots the
+    state synchronously (:func:`state_to_flat`: copies the next step
+    cannot touch) and queues the npz write and lineage tail for one
+    worker thread; saves land in submission order, the queue holds two
+    snapshots at most (a slow disk slows ``save`` rather than stacking
+    snapshots), and a worker failure is raised, as
+    :class:`CheckpointWriteError`, by every later ``save``, ``flush`` and
+    ``close``."""
+
+    def __init__(self) -> None:
+        import queue
+        import threading
+
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._error: Optional[BaseException] = None
+        self._error_lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, name="sat-ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        import threading
+
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if isinstance(item, threading.Event):  # flush() barrier
+                item.set()
+                continue
+            args, healthy = item
+            try:
+                _write_flat(*args, healthy=healthy)
+            except BaseException as e:  # surfaced on the next save/flush/close
+                with self._error_lock:
+                    if self._error is None:  # keep the root cause
+                        self._error = e
+
+    def _check(self) -> None:
+        with self._error_lock:
+            e = self._error
+        if e is not None:
+            raise CheckpointWriteError("async checkpoint write failed") from e
+
+    def save(self, state, config: Config, save_dir: Optional[str] = None, healthy: bool = True) -> str:
+        self._check()
+        save_dir = save_dir or config.save_dir
+        flat = state_to_flat(state)
+        path = os.path.join(save_dir, f"{int(flat['global_step'])}.npz")
+        self._q.put(((flat, path, config, save_dir, _topology(state)), healthy))
+        return path
+
+    def flush(self) -> None:
+        """Block until every queued save is on disk with its lineage tail,
+        then raise any worker failure."""
+        import threading
+
+        barrier = threading.Event()
+        self._q.put(barrier)
+        barrier.wait()
+        self._check()
+
+    def close(self) -> None:
+        """Drain pending writes; raise the first worker failure."""
+        self._q.put(None)
+        self._thread.join()
+        self._check()
+
+
+def restore_checkpoint(
+    state,
+    model_file: Optional[str] = None,
+    save_dir: Optional[str] = None,
+    expect_vocab: Optional[dict] = None,
+):
+    """Load a checkpoint into ``state`` in place: ``model_file`` as given,
+    else the newest checkpoint under ``save_dir`` that verifies and loads
+    (:func:`walk_back`).  Entries whose name or shape the state lacks are
+    skipped (a trimmed or partial file loads what it has).  Returns
+    (state with the file's ``global_step``, tensors loaded); the step is
+    not counted, so 0 means nothing usable was loaded."""
+    if model_file:
+        check_vocab(model_file, expect_vocab)
+        flat = load_flat(model_file)
+    elif save_dir:
+        flat, _ = walk_back(save_dir, expect_vocab)
+    else:
+        raise FileNotFoundError(f"no checkpoint found (save_dir={save_dir!r})")
+    count = assign_flat(state.params, "params/", flat) + assign_flat(state.opt_state, "optimizer/", flat)
+    step = int(np.asarray(flat["global_step"])) if "global_step" in flat else state.step
+    return state._replace(step=step), count

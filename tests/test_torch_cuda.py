@@ -1,6 +1,7 @@
 """sat_tpu_torch on the card: the CUDA ``fused_attend`` (unmasked and
-masked bodies) against its plain version, and the serving path (batch and
-continuous) on the card against the CPU.  Marked
+masked bodies) against its plain version, the serving path (batch and
+continuous) and the train and eval-loss steps on the card against the
+CPU, and the kernel's refusal to be differentiated.  Marked
 ``cuda``; each test skips without a card.  Run on a GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -34,7 +35,7 @@ def _inputs(B, N, da, D, seed=0):
 @pytest.mark.parametrize(
     "B,N,da,D",
     [(96, 196, 512, 512), (5, 7, 24, 40), (1, 1, 4, 4), (3, 13, 13, 7), (2, 12000, 8, 300), (4, 49, 512, 2048),
-     (2, 5, 22, 38), (60, 196, 512, 512)],
+     (2, 5, 22, 38), (60, 196, 512, 512), (20, 196, 512, 512)],
 )
 def test_kernel_matches_plain_version(cuda, dtype, B, N, da, D):
     args = _inputs(B, N, da, D)
@@ -235,3 +236,84 @@ def test_stepped_decode_on_the_card_matches_the_cpu(cuda):
     for r in range(5):
         assert torch.equal(out["cuda"][r][0], out["cpu"][r][0])
         torch.testing.assert_close(out["cuda"][r][1], out["cpu"][r][1], rtol=0, atol=1e-4)
+
+
+def _train_config(**kw):
+    from sat_tpu_torch.config import Config
+
+    return Config(
+        image_size=32, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16,
+        dim_attend_layer=16, dim_decode_layer=32, vocabulary_size=50, compute_dtype="float32",
+        max_caption_length=8, fc_drop_rate=0.0, lstm_drop_rate=0.0, **kw,
+    )
+
+
+def _train_batch(config, B=4, seed=0):
+    rng = np.random.default_rng(seed)
+    T = config.max_caption_length
+    masks = (np.arange(T)[None] < rng.integers(3, T + 1, size=(B, 1))).astype(np.float32)
+    return {
+        "images": rng.integers(0, 256, size=(B, config.image_size, config.image_size, 3), dtype=np.uint8),
+        "word_idxs": (rng.integers(1, config.vocabulary_size, size=(B, T)) * masks).astype(np.int32),
+        "masks": masks,
+    }
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Small float32 model, dropout off: 3 Adam steps on the card and on
+    the CPU from the same weights and batch.  Losses within 1e-5 relative,
+    parameters within 1e-5 absolute; the train step launches no kernel."""
+    from sat_tpu_torch.device import resolve_device
+    from sat_tpu_torch.train.checkpoint import params_to_flat
+    from sat_tpu_torch.train.step import create_train_state, make_train_step, step_generator
+
+    config = _train_config()
+    resolve_device("cuda")
+    batch = _train_batch(config)
+    losses, flats = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(config, torch.Generator().manual_seed(0), dev)
+        step = make_train_step(config)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = (fa.fused_attend.launches, fa.fused_attend.masked_launches)
+        losses[dev] = []
+        for s in range(3):
+            state, metrics = step(state, tb, step_generator(0, s, dev))
+            losses[dev].append(float(metrics["total_loss"]))
+        assert (fa.fused_attend.launches, fa.fused_attend.masked_launches) == before
+        flats[dev] = params_to_flat(state.params)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for k, v in flats["cpu"].items():
+        np.testing.assert_allclose(flats["cuda"][k], v, rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_kernel_refuses_to_be_differentiated_on_the_card(cuda):
+    args = [x.requires_grad_(i == 2) for i, x in enumerate(_inputs(3, 7, 24, 40))]
+    before = fa.fused_attend.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.fused_attend(*args)
+    assert fa.fused_attend.launches == before
+    with torch.no_grad():
+        fa.fused_attend(*args)
+    assert fa.fused_attend.launches == before + 1
+
+
+def test_eval_loss_step_launches_the_kernel_once_a_step(cuda):
+    """The eval-loss step (no grad) goes through the unmasked kernel once
+    per decode step, T in all, and its metrics match the CPU's within
+    1e-5 relative."""
+    from sat_tpu_torch.device import resolve_device
+    from sat_tpu_torch.train.step import create_train_state, make_eval_loss_step
+
+    config = _train_config()
+    resolve_device("cuda")
+    batch = _train_batch(config, seed=1)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(config, torch.Generator().manual_seed(0), dev)
+        before = fa.fused_attend.launches
+        got[dev] = make_eval_loss_step(config)(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        launched = fa.fused_attend.launches - before
+        assert launched == (config.max_caption_length if dev == "cuda" else 0)
+    for k, v in got["cpu"].items():
+        np.testing.assert_allclose(float(got["cuda"][k]), float(v), rtol=1e-5, err_msg=k)

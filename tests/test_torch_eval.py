@@ -35,6 +35,7 @@ from sat_tpu_torch import runtime
 from sat_tpu_torch.data import dataset
 from sat_tpu_torch.data.images import ImageLoader, PrefetchDecodeError, PrefetchLoader
 from sat_tpu_torch.ops.beam_search import greedy_decode
+from sat_tpu_torch.resilience import retry
 from sat_tpu_torch.utils import fileio
 from tests.torch_port_helpers import configs, port_params, to_torch
 
@@ -319,7 +320,7 @@ def test_cli_builds_eval_and_test_configs(tmp_path):
 def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
     calls = []
     scores = {k: 0.25 for k in METRICS}
-    monkeypatch.setattr(fileio, "_defaults", dict(fileio._defaults))
+    monkeypatch.setattr(retry, "_defaults", dict(retry._defaults))
     monkeypatch.setattr(runtime, "setup_state", lambda c, load, model_file, load_cnn: calls.append(
         ("setup", c.phase, load, model_file, load_cnn)) or "state")
     monkeypatch.setattr(runtime, "evaluate", lambda c, state: calls.append(("eval", state)) or scores)
@@ -329,7 +330,7 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
 
     assert cli.main(["--phase", "eval", "--model_file", "5.npz", "--set", "io_retries=5"]) == 0
     assert calls == [("setup", "eval", True, "5.npz", False), ("eval", "state")]
-    assert fileio._defaults["retries"] == 5
+    assert retry._defaults["retries"] == 5
     assert capsys.readouterr().out.splitlines() == [f"{k}: 0.2500" for k in METRICS]
 
     calls.clear()
@@ -371,13 +372,27 @@ def test_unported_eval_knobs_raise(knob, tmp_path):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"model_file": "ref.npy"}, {"load": True, "load_cnn": True}, {}],
-    ids=["npy", "load_cnn", "random_init"],
+    [{"model_file": "ref.npy"}, {"load": True, "load_cnn": True}],
+    ids=["npy", "load_cnn"],
 )
 def test_unported_state_setups_raise(kwargs, tmp_path):
     _, tc = configs(save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        runtime.setup_state(tc, device="cpu", **kwargs)
+    for setup in (runtime.setup_state, runtime.setup_train_state):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            setup(tc, device="cpu", **kwargs)
+
+
+def test_setup_state_without_a_checkpoint_draws_random_weights(tmp_path):
+    """No checkpoint to load: parameters drawn from ``config.seed`` (the
+    same seed, the same weights), at step 0."""
+    from sat_tpu_torch.train.checkpoint import param_shapes, params_to_flat
+
+    _, tc = configs(save_dir=str(tmp_path))
+    a, b = (runtime.setup_state(tc, device="cpu") for _ in range(2))
+    assert a.step == 0
+    fa, fb = params_to_flat(a.params), params_to_flat(b.params)
+    assert {k: v.shape for k, v in fa.items()} == param_shapes(tc)
+    assert all(np.array_equal(fa[k], fb[k]) for k in fa)
 
 
 def test_eval_entry_points_need_cuda_unless_cpu_is_asked(world, monkeypatch):
@@ -425,7 +440,7 @@ def test_read_json_retries_transient_errors_only(tmp_path, monkeypatch):
         return real_open(p, *a, **k)
 
     monkeypatch.setattr(builtins, "open", flaky)
-    monkeypatch.setattr(fileio.time, "sleep", lambda s: None)
+    monkeypatch.setattr(retry.time, "sleep", lambda s: None)
     assert fileio.read_json(str(path)) == {"a": 1} and len(failures) == 2
     with pytest.raises(FileNotFoundError):
         fileio.read_json(str(tmp_path / "missing.json"))

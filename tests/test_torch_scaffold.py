@@ -27,12 +27,14 @@ def _port_sources():
 
 
 def test_import_loads_neither_jax_nor_sat_tpu():
-    """The eval/test runtime, the scorers and the CLI, then every
-    submodule, import in a fresh interpreter without loading jax, flax,
-    optax or any sat_tpu module."""
+    """The runtime (train, eval, test), the train step and optimizer, the
+    scorers and the CLI, then every submodule, import in a fresh
+    interpreter without loading jax, flax, optax or any sat_tpu module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sat_tpu_torch.runtime, sat_tpu_torch.evalcap, sat_tpu_torch.cli\n"
+        "import sat_tpu_torch.train.step, sat_tpu_torch.train.optimizer\n"
+        "from sat_tpu_torch.runtime import train, setup_train_state\n"
         "names = [m.name for m in pkgutil.walk_packages(sat_tpu_torch.__path__, 'sat_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sat_tpu'))\n"
@@ -139,7 +141,7 @@ def test_kernel_library_is_named_by_source_hash(tmp_path, monkeypatch):
 
 
 def test_cli_serves_only_the_ported_phase(tmp_path):
-    from sat_tpu_torch.cli import build_config, main
+    from sat_tpu_torch.cli import PORTED_PHASES, build_config, main
 
     config, opts = build_config(
         ["--phase", "serve", "--port", "0", "--max_batch", "4", "--model_file", "x.npz",
@@ -148,8 +150,9 @@ def test_cli_serves_only_the_ported_phase(tmp_path):
     assert (config.phase, config.serve_port, config.serve_max_batch) == ("serve", 0, 4)
     assert (config.beam_size, config.serve_buckets, config.num_initialize_layers) == (2, (1, 4), 1)
     assert opts["model_file"] == "x.npz"
+    assert "train" in PORTED_PHASES
     with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--phase", "train"])
+        main(["--phase", "route"])
     with pytest.raises(SystemExit, match="unknown Config field"):
         build_config(["--set", "no_such_field=1"])
 
@@ -175,3 +178,38 @@ def test_config_copy_matches_the_jax_config(tmp_path):
         Config(cnn="vgg19")
     assert Config(cnn="resnet50", image_size=224).num_ctx == 49
     np.testing.assert_equal(Config().num_ctx, JaxConfig().num_ctx)
+
+
+def test_tf32_is_off_once_a_card_is_resolved(monkeypatch):
+    """``resolve_device`` turns cuDNN's and cuBLAS's TF32 off when it
+    resolves a card (patched here to see one); the encoder no longer flips
+    the process-wide switch around a call; the CPU leaves it alone."""
+    import inspect
+
+    from sat_tpu_torch.device import resolve_device
+    from sat_tpu_torch.models import captioner
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert "allow_tf32" not in inspect.getsource(captioner)
+
+
+def test_fused_attend_refuses_to_be_differentiated():
+    """The kernel has no backward: with grad enabled and an input that
+    requires grad the guard raises (a zero gradient is never returned);
+    under no_grad, or with no input requiring grad, it passes."""
+    from sat_tpu_torch.ops.fused_attend import _refuse_grad
+
+    t1, t2, w2, ctx = torch.zeros(2, 3, 4), torch.zeros(2, 4), torch.zeros(4, 1), torch.zeros(2, 3, 5)
+    _refuse_grad(t1, t2, w2, ctx)
+    w2.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused_attend: the CUDA kernel has no backward"):
+        _refuse_grad(t1, t2, w2, ctx)
+    with torch.no_grad():
+        _refuse_grad(t1, t2, w2, ctx)

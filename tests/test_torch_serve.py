@@ -210,3 +210,19 @@ def test_bucket_overflow_sheds_429(served):
         assert {r.error[0] for r in reqs} == {429}
     finally:
         batcher.drain(timeout=60)
+
+
+@pytest.mark.parametrize(
+    "knob", [{"blackbox": True}, {"trace_export": "/nonexistent/trace.json"}], ids=lambda k: next(iter(k))
+)
+def test_serve_refuses_the_flight_recorder_and_trace_export(knob, tmp_path):
+    """Neither is ported: serve raises rather than run without writing what
+    the knob asks for."""
+    from sat_tpu_torch.serve.engine import check_ported
+    from sat_tpu_torch.serve.server import serve
+
+    _, tc = configs(**knob)
+    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}=.*not ported"):
+        check_ported(tc)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve(tc.replace(save_dir=str(tmp_path)), device="cpu")

@@ -68,14 +68,30 @@ Phases, each fatal on failure:
 12. eval steady — ``decode_dataset`` at full width over 400 JPEGs of
    480 px (20 batches of 20): images/s of two warm passes, then the
    card's busy share of one pass under torch.profiler.
-13. train reference — the train path at the small float32 size, dropout
+13. shard cache — the eval steady fixture through ``shard_cache="on"``:
+   the build timed, then two ``decode_dataset`` passes from the cache,
+   their captions and probs bitwise a live pass's, images/s beside it;
+   then a shard row rotted (``SAT_FI_CORRUPT_SHARD_ROW``) under
+   ``verify_shards="full"``: caught, decoded live, captions unchanged.
+14. bulk — ``python -m sat_tpu_torch.cli --phase bulk`` over the steady
+   fixture's 400 JPEGs plus one file that is not a JPEG (401 files, two
+   shards of 256), the slice's flagship checkpoint and every ``Config``
+   default (16 slots x beam 3, depths 1/2/4/8, heartbeat 10 s), each run
+   in a fresh process: one row a file with ``beam_size`` finite
+   captions, the bad file quarantined and substituted, one ledger line,
+   the masked kernel launched and the unmasked not, the heartbeat's
+   ``bulk/*`` gauges; a run killed by ``SAT_FI_DIE_AT_STEP`` at half the
+   control's decode steps, relaunched: the output directory bitwise the
+   control's; a second relaunch: "nothing to do".  Then one shard
+   decoded in-process under torch.profiler: the card's busy share.
+15. train reference — the train path at the small float32 size, dropout
    off: 3 Adam steps on the card and on the CPU from the same weights
    and batch (losses within 1e-5 relative, parameters within 1e-5
    absolute, no kernel launched by a train step); ``fused_attend``
    refusing an input that requires grad on the card; an eval-loss step
    launching the kernel once a decode step, its metrics the CPU's
    within 1e-5 relative.
-14. train — the flagship model with ``Config``'s training defaults
+16. train — the flagship model with ``Config``'s training defaults
    (dropout 0.5/0.3, Adam 1e-4, clip 5, batch 20, frozen CNN, async
    checkpoints) on the eval steady fixture with two captions an image
    (800 pairs): ``python -m sat_tpu_torch.cli --phase train`` in a fresh
@@ -83,7 +99,7 @@ Phases, each fatal on failure:
    finite metrics, the loss falls, no kernel launched); ``--load`` to 80
    (resumes at 60, 80.npz holds 60.npz's names); ``--phase test`` on 7
    JPEGs with 80.npz.
-15. train steady — ``runtime.train`` in-process at full width: the median
+17. train steady — ``runtime.train`` in-process at full width: the median
    of 30 warm steps (each ending in ``torch.cuda.synchronize``),
    training pairs/s, peak memory, FLOPs a step from the shapes against
    989 TFLOP/s bf16; 5 steps under torch.profiler (busy share, top
@@ -869,9 +885,11 @@ runtime.decode_batch = counted_batch
 runtime.decode_dataset = timed(runtime.decode_dataset, "decode_s")
 CocoEvalCap.evaluate = timed(CocoEvalCap.evaluate, "score_s")
 fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
-rc = cli.main(sys.argv[1:])
-tally.update(launches=fa.fused_attend.launches, masked=fa.fused_attend.masked_launches)
-print("chip_smoke counts " + json.dumps(tally), flush=True)
+try:
+    rc = cli.main(sys.argv[1:])
+finally:
+    tally.update(launches=fa.fused_attend.launches, masked=fa.fused_attend.masked_launches)
+    print("chip_smoke counts " + json.dumps(tally), flush=True)
 sys.exit(rc)
 """
 
@@ -905,22 +923,26 @@ def caption_words():
     return words
 
 
-def run_cli(args, where: str, timeout: int = 600):
-    """``sat_tpu_torch.cli`` with ``args`` in a fresh process; returns
-    (its tally, its standard output).  Fails on a non-zero exit."""
+def run_cli(args, where: str, timeout: int = 600, rc: int = 0, env=None):
+    """``sat_tpu_torch.cli`` with ``args`` in a fresh process (``env`` added
+    to this one's); returns (its tally, its standard output), the tally
+    holding the wall seconds and the end of standard error.  Fails on an
+    exit code other than ``rc``."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", CLI_HARNESS, *args], cwd=here,
-                         capture_output=True, text=True, timeout=timeout)
+                         capture_output=True, text=True, timeout=timeout,
+                         env=None if env is None else {**os.environ, **env})
     wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        fail(f"{where}: python -m sat_tpu_torch.cli {' '.join(args)} exited {out.returncode}:\n"
-             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    last = out.stdout.strip().splitlines()[-1]
+    if out.returncode != rc:
+        fail(f"{where}: python -m sat_tpu_torch.cli {' '.join(args)} exited {out.returncode}, "
+             f"expected {rc}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
     if not last.startswith("chip_smoke counts "):
-        fail(f"{where}: no tally line:\n{out.stdout[-2000:]}")
+        fail(f"{where}: no tally line:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
     tally = json.loads(last[len("chip_smoke counts "):])
     tally["wall_s"] = wall
+    tally["stderr"] = out.stderr[-4000:]
     return tally, out.stdout
 
 
@@ -1094,6 +1116,14 @@ def eval_reference_phase(np, config):
           f"sample caption {gc[0]}", flush=True)
 
 
+def steady_config(config):
+    """``config`` on the eval steady fixture (written by that phase)."""
+    root = os.path.join(os.path.dirname(os.path.dirname(config.eval_image_dir)), "steady")
+    return config.replace(eval_image_dir=os.path.join(root, "images"),
+                          eval_caption_file=os.path.join(root, "captions.json"), max_eval_ann_num=None,
+                          shard_cache_dir=os.path.join(root, "shards"))
+
+
 STEADY_IMAGES = 400   # 20 eval batches of 20
 STEADY_SIZE = 480     # px a side: COCO's photos are 640 x 480
 
@@ -1111,10 +1141,8 @@ def eval_steady_phase(torch, np, config, card: str):
     from sat_tpu_torch import runtime
     from sat_tpu_torch.data.dataset import prepare_eval_data
 
-    root = os.path.join(os.path.dirname(os.path.dirname(config.eval_image_dir)), "steady")
-    image_dir, caption_file = write_coco_fixture(np, root, STEADY_IMAGES, SEED + 45, size=STEADY_SIZE)
-    config = config.replace(eval_image_dir=image_dir, eval_caption_file=caption_file,
-                            max_eval_ann_num=None)
+    config = steady_config(config)
+    write_coco_fixture(np, os.path.dirname(config.eval_image_dir), STEADY_IMAGES, SEED + 45, size=STEADY_SIZE)
     state = runtime.setup_state(config, load=True, device="cuda")
     _, dataset, vocab = prepare_eval_data(config)
     batches = dataset.num_batches
@@ -1145,6 +1173,213 @@ def eval_steady_phase(torch, np, config, card: str):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile eval kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}",
               flush=True)
+
+
+def shard_cache_phase(torch, np, config, card: str):
+    """``decode_dataset`` over the eval steady fixture from the shard cache:
+    ``shard_cache="on"`` builds it (timed), then two passes from it, whose
+    captions and probs must be bitwise a live pass's, images/s beside the
+    live pass's; then row 3 of the first shard rotted
+    (``SAT_FI_CORRUPT_SHARD_ROW``) under ``verify_shards="full"``: the rot
+    detected, the row decoded live, the captions unchanged."""
+    from sat_tpu_torch import runtime, telemetry
+    from sat_tpu_torch.data.dataset import prepare_eval_data
+    from sat_tpu_torch.data.shards import resolve_shard_cache
+
+    config = steady_config(config)
+    state = runtime.setup_state(config, load=True, device="cuda")
+    _, dataset, vocab = prepare_eval_data(config)
+
+    def decode(cfg):
+        t0 = time.perf_counter()
+        rows = runtime.decode_dataset(cfg, state, dataset, vocab, device="cuda")
+        torch.cuda.synchronize()
+        if len(rows) != STEADY_IMAGES:
+            fail(f"shard cache: {len(rows)} rows for {STEADY_IMAGES} images")
+        return [(r["image_file"], r["caption"], r["prob"]) for r in rows], time.perf_counter() - t0
+
+    live = config.replace(shard_cache="off")
+    decode(live)
+    want, live_s = decode(live)
+    t0 = time.perf_counter()
+    cache = resolve_shard_cache(config.replace(shard_cache="on"), dataset.image_files)
+    build_s = time.perf_counter() - t0
+    if cache is None or len(cache) != STEADY_IMAGES:
+        fail(f"shard cache: the build covers {0 if cache is None else len(cache)} of {STEADY_IMAGES} images")
+    cached = []
+    for _ in range(2):
+        got, wall = decode(config.replace(shard_cache="on"))
+        if got != want:
+            diff = sum(a != b for a, b in zip(got, want))
+            fail(f"shard cache: {diff} of {STEADY_IMAGES} captions or probs differ from the live pass")
+        cached.append(wall)
+    os.environ["SAT_FI_CORRUPT_SHARD_ROW"] = "3"
+    tel = telemetry.enable()
+    try:
+        got, rot_s = decode(config.replace(shard_cache="on", verify_shards="full"))
+        counters = tel.counters()
+    finally:
+        del os.environ["SAT_FI_CORRUPT_SHARD_ROW"]
+        telemetry.disable()
+    if counters.get("data/corrupt_rows", 0) < 1 or counters.get("data/decode_fallback", 0) < 1:
+        fail(f"shard cache: the rotted row was not caught and decoded live: {counters}")
+    if got != want:
+        fail("shard cache: captions over the rotted cache differ from the live pass")
+    print(f"shard cache on {card}: built over {STEADY_IMAGES} JPEGs of {STEADY_SIZE} px in {build_s:.2f}s "
+          f"({STEADY_IMAGES / build_s:.1f} images/s, {len(cache._shard_files)} shard(s)); decode_dataset "
+          f"live {live_s:.3f}s = {STEADY_IMAGES / live_s:.1f} images/s, from the cache "
+          + ", ".join(f"{w:.3f}s = {STEADY_IMAGES / w:.1f} images/s" for w in cached)
+          + "; captions and probs bitwise the live pass's", flush=True)
+    print(f"shard cache rot on {card}: verify_shards=full caught {counters['data/corrupt_rows']} rotted "
+          f"row(s) over {counters.get('data/verify_rows', 0)} verified, {counters['data/decode_fallback']} "
+          f"decoded live, captions unchanged; pass {rot_s:.3f}s", flush=True)
+
+
+BULK_BAD = "zz_not_a_jpeg.jpg"
+
+
+def bulk_outputs(out_dir: str) -> dict:
+    return {n: open(os.path.join(out_dir, n), "rb").read() for n in sorted(os.listdir(out_dir))}
+
+
+def bulk_phase(torch, np, tmp: str, card: str):
+    """``python -m sat_tpu_torch.cli --phase bulk`` over the eval steady
+    fixture's 400 JPEGs plus one file that is not a JPEG (401 files, two
+    shards of ``bulk_shard_rows`` 256), the slice phase's flagship
+    checkpoint and every ``Config`` default (16 slots x beam 3, decode
+    depths 1/2/4/8, heartbeat every 10 s), each run in a fresh process:
+    a control run; a run killed by ``SAT_FI_DIE_AT_STEP`` at half the
+    control's decode steps, relaunched: the output directory bitwise the
+    control's; a second relaunch: "nothing to do".  Then one shard decoded
+    in-process, once warm and once under torch.profiler: the card's busy
+    share.  Returns the B2 launches of the CLI runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.bulk import runner
+    from sat_tpu_torch.bulk.corpus import resolve_corpus
+    from sat_tpu_torch.data.vocabulary import Vocabulary
+    from sat_tpu_torch.resilience.faultinject import FaultPlan
+    from sat_tpu_torch.resilience.quarantine import QuarantineManager
+    from sat_tpu_torch.resilience.watchdog import Watchdog
+    from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
+    from sat_tpu_torch.serve.slot_pool import PagedSlotPool
+
+    root = os.path.join(tmp, "bulk")
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    steady = os.path.join(tmp, "steady", "images")
+    for name in sorted(os.listdir(steady)):
+        os.link(os.path.join(steady, name), os.path.join(corpus, name))
+    with open(os.path.join(corpus, BULK_BAD), "wb") as f:
+        f.write(b"this file is not a JPEG\n")
+    base = flagship_config(tmp).replace(phase="bulk", bulk_input=corpus)
+    files = resolve_corpus(corpus)
+    if len(files) != STEADY_IMAGES + 1:
+        fail(f"bulk: the corpus holds {len(files)} files")
+
+    def run(name, where, rc=0, env=None):
+        config = base.replace(bulk_output=os.path.join(root, name),
+                              summary_dir=os.path.join(root, name + "_summary"))
+        path = os.path.join(root, name + ".json")
+        config.save(path)
+        tally, _ = run_cli(["--config", path], where, rc=rc, env=env)
+        if tally["launches"] != 0:
+            fail(f"{where}: the unmasked fused_attend ran {tally['launches']} times on the bulk path")
+        return config, tally
+
+    control, tally = run("control", "bulk")
+    if tally["masked"] == 0:
+        fail("bulk: the masked fused_attend was never launched on the bulk path")
+    out = bulk_outputs(control.bulk_output)
+    if sorted(n for n in out if n.endswith(".jsonl")) != ["captions_00000.jsonl", "captions_00001.jsonl"]:
+        fail(f"bulk: output files {sorted(out)}")
+    rows = [json.loads(line) for n in ("captions_00000.jsonl", "captions_00001.jsonl")
+            for line in out[n].decode().splitlines()]
+    if [r["file"] for r in rows] != files:
+        fail("bulk: the rows are not one per corpus file, in corpus order")
+    for r in rows:
+        caps = r["captions"]
+        if len(caps) != control.beam_size or not all(
+                isinstance(c["caption"], str) and np.isfinite(c["log_prob"]) and np.isfinite(c["prob"])
+                for c in caps):
+            fail(f"bulk: row {r['file']} has captions {caps}")
+    marked = [r for r in rows if r.get("quarantined")]
+    if [os.path.basename(r["file"]) for r in marked] != [BULK_BAD] or marked[0]["substituted_from"] not in files:
+        fail(f"bulk: quarantine markers {marked[:2]}")
+    with open(os.path.join(control.summary_dir, "quarantine.jsonl")) as f:
+        ledger = [json.loads(line) for line in f]
+    if len(ledger) != 1 or os.path.basename(ledger[0]["file"]) != BULK_BAD:
+        fail(f"bulk: ledger {ledger}")
+    with open(os.path.join(control.summary_dir, "telemetry", "heartbeat.json")) as f:
+        gauges = json.load(f)["bulk"]
+    if gauges.get("images_done") != len(files) or not gauges.get("device_ms_per_image", 0) > 0:
+        fail(f"bulk: heartbeat gauges {gauges}")
+    steps = gauges["decode_steps"]
+    complete = [line for line in tally["stderr"].splitlines() if "bulk: complete" in line]
+    print(f"bulk flagship bf16 on {card}: {len(files)} files (1 not a JPEG, quarantined and substituted "
+          f"from {os.path.basename(marked[0]['substituted_from'])}) in 2 shards, process start to exit "
+          f"{tally['wall_s']:.2f}s; captions/s {gauges['captions_per_s']}, bulk/device_ms_per_image "
+          f"{gauges['device_ms_per_image']}, decode steps {steps}; fused_attend masked launches "
+          f"{tally['masked']}, unmasked 0", flush=True)
+    print(f"bulk log: {complete[-1] if complete else '(no complete line)'}", flush=True)
+    print(f"bulk heartbeat gauges: {json.dumps(gauges, sort_keys=True)}", flush=True)
+    print(f"bulk sample row (random weights): {json.dumps(rows[0])[:300]}", flush=True)
+
+    killed, kill_tally = run("killed", "bulk kill", rc=1, env={"SAT_FI_DIE_AT_STEP": str(steps // 2)})
+    if "injected preemption" not in kill_tally["stderr"]:
+        fail(f"bulk kill: the run did not stop on the injected preemption:\n{kill_tally['stderr'][-1500:]}")
+    done = json.loads(bulk_outputs(killed.bulk_output)["bulk_manifest.json"])["completed"]
+    if len(done) >= 2:
+        fail(f"bulk kill: the kill at step {steps // 2} of {steps} left {len(done)} shards complete")
+    _, resumed = run("killed", "bulk resume")
+    if bulk_outputs(killed.bulk_output) != bulk_outputs(control.bulk_output):
+        diff = [n for n, b in bulk_outputs(killed.bulk_output).items() if out.get(n) != b]
+        fail(f"bulk resume: output files differ from the uninterrupted run's: {diff}")
+    _, again = run("killed", "bulk resume again")
+    if "nothing to do" not in again["stderr"] or again["masked"] != 0:
+        fail(f"bulk resume again: expected nothing to do:\n{again['stderr'][-1000:]}")
+    print(f"bulk kill on {card}: SAT_FI_DIE_AT_STEP={steps // 2} of {steps} exited 1 after "
+          f"{kill_tally['wall_s']:.2f}s with {len(done)} shard(s) committed; the relaunch "
+          f"({resumed['wall_s']:.2f}s) left the output directory bitwise the uninterrupted run's; a "
+          f"second relaunch: nothing to do ({again['wall_s']:.2f}s)", flush=True)
+
+    # one shard, in-process: the card's busy share of its decode
+    tel = telemetry.enable()
+    try:
+        state, _ = load_serving_state(control, device="cuda")
+        engine = ServeEngine(control, state, Vocabulary(control.vocabulary_size, control.vocabulary_file),
+                             device="cuda", tel=tel)
+        pool = PagedSlotPool(engine, tel=tel)
+        pool.warmup()
+        shard = files[:control.bulk_shard_rows]
+        batch, _ = runner._assemble_rows(shard, engine.loader, None,
+                                         QuarantineManager(os.path.join(root, "profile.jsonl")), 8)
+        wd, fp = Watchdog({}), FaultPlan()
+        runner._decode_shard(engine, pool, batch, fp, wd, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner._decode_shard(engine, pool, batch, fp, wd, 0)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner._decode_shard(engine, pool, batch, fp, wd, 0)
+            torch.cuda.synchronize()
+            profiled = time.perf_counter() - t0
+    finally:
+        telemetry.disable()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy == 0:
+        fail("bulk profile: torch.profiler recorded no device time")
+    print(f"profile bulk shard on {card}: {len(shard)} images, warm {warm:.3f}s ({len(shard) / warm:.1f} "
+          f"captions/s), under the profiler {profiled:.3f}s, device busy {busy:.3f}s ({busy / profiled:.1%} "
+          f"of that wall, {busy / warm:.1%} of the warm pass)", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"profile bulk kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}",
+              flush=True)
+    return tally["masked"] + kill_tally["masked"] + resumed["masked"]
 
 
 # -- train phases ---------------------------------------------------------------
@@ -1553,6 +1788,12 @@ def main() -> int:
         eval_steady_phase(torch, np, config, card)
         phase("eval steady", t0)
         t0 = time.perf_counter()
+        shard_cache_phase(torch, np, config, card)
+        phase("shard cache", t0)
+        t0 = time.perf_counter()
+        bulk_launches = bulk_phase(torch, np, tmp, card)
+        phase("bulk", t0)
+        t0 = time.perf_counter()
         train_reference_phase(torch, np, fa)
         phase("train reference", t0)
         t0 = time.perf_counter()
@@ -1570,7 +1811,8 @@ def main() -> int:
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     print(f"fused_attend launches on the main paths: batch serve {launches}, eval and sweep "
           f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
-          f"step {eval_loss_launches}; train steps 0", flush=True)
+          f"step {eval_loss_launches}; train steps 0; masked: continuous serve {masked_launches}, "
+          f"bulk {bulk_launches}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["dtype"]) == (96, "bfloat16"))
     masked_row = next(r for r in masked_rows if r["live"] == 48)
     print(json.dumps({"kernels": [{
@@ -1592,7 +1834,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
-        "launches": masked_launches,
+        "launches": masked_launches + bulk_launches,
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],

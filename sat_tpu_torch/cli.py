@@ -1,17 +1,24 @@
-"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase train|serve|eval|test``.
+"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase train|serve|eval|test|bulk``.
 
 The port of ``sat_tpu.cli`` for the phases ported so far, which run on
 the card.  It takes the JAX CLI's flags for them (``--config``, ``--set
 key=value``, ``--model_file``, ``--load``, ``--train_cnn``, ``--load_cnn``
 (which raises: not ported), ``--beam_size``, ``--shard_cache``,
-``--sweep``; for serve ``--port``, ``--max_batch``, ``--max_wait_ms``,
-``--serve_mode``, ``--serve_decode_depth``), so one config file and one
-override list drive both packages.  Train exits 1 when a checkpoint it
-depends on did not land, and 0 after a graceful SIGTERM/SIGINT stop
-(resume with ``--load``).  Eval prints each score as ``name: value``;
-``--sweep`` scores every checkpoint under save_dir and prints a ``step
-N: ...`` line for each.  Any other phase, and ``--supervise``, exits with
-"not ported yet".
+``--verify_shards``, ``--sweep``; for serve ``--port``, ``--max_batch``,
+``--max_wait_ms``, ``--serve_mode``, ``--serve_decode_depth``; for bulk
+``--bulk_input``, ``--bulk_output``, ``--bulk_shard_rows``), so one
+config file and one override list drive both packages.
+
+Exit codes: train exits 1 when a checkpoint it depends on did not land,
+and 0 after a graceful SIGTERM/SIGINT stop (resume with ``--load``);
+bulk exits 1 on an injected preemption (``SAT_FI_DIE_AT_STEP``; relaunch
+to resume) and 0 after a graceful stop; train and bulk exit 87 when the
+quarantine's systemic-corruption ceiling trips.  ``--repair_shards``
+rebuilds the shard-cache files holding rotted or quarantined rows,
+prints a JSON report and exits 0, or 2 when no cache exists; it touches
+no device.  Eval prints each score as ``name: value``; ``--sweep`` scores
+every checkpoint under save_dir and prints a ``step N: ...`` line for
+each.  ``--phase route`` and ``--supervise`` exit with "not ported yet".
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import List, Optional
 
 from .config import Config
 
-PORTED_PHASES = ("train", "serve", "eval", "test")
+PORTED_PHASES = ("train", "serve", "eval", "test", "bulk")
 
 # the reference's misspelled config keys, accepted like the JAX CLI does
 _REFERENCE_KEY_ALIASES = {
@@ -83,8 +90,23 @@ def build_config(argv: Optional[List[str]] = None):
     p.add_argument("--beam_size", type=int, default=None)
     p.add_argument(
         "--shard_cache", default=None, choices=["auto", "on", "off"],
-        help="preprocessed-image shard cache: the port decodes live, so "
-             "'auto' and 'off' run and 'on' is not ported yet",
+        help="preprocessed-image shard cache (data.shards): 'auto' uses a "
+             "valid existing cache and decodes live otherwise, 'on' builds or "
+             "extends the cache before the run, 'off' always decodes live",
+    )
+    p.add_argument(
+        "--verify_shards", default=None, choices=["off", "sample", "open", "full"],
+        help="verify gathered shard rows against their crc32c sidecars "
+             "(data.integrity): 'sample' one rotating row every few gathers, "
+             "'open' each shard in full on first touch, 'full' every row; a "
+             "corrupt row falls back to live decode, failing that it is "
+             "quarantined",
+    )
+    p.add_argument(
+        "--repair_shards", action="store_true",
+        help="rebuild only the shard files holding crc-mismatching or "
+             "quarantined rows by re-decoding their images, print a JSON "
+             "report and exit (no device needed)",
     )
     p.add_argument(
         "--sweep", action="store_true",
@@ -106,6 +128,21 @@ def build_config(argv: Optional[List[str]] = None):
         "--serve_decode_depth", default=None, metavar="K1,K2,...",
         help="serve (continuous): the fused decode window's depths, starting "
              "at 1; the deepest runs while no request waits, K=1 otherwise",
+    )
+    p.add_argument(
+        "--bulk_input", default=None, metavar="PATH",
+        help="bulk: the image corpus, a directory tree (walked for images; "
+             "other files are skipped and counted) or a text file listing "
+             "one image path per line",
+    )
+    p.add_argument(
+        "--bulk_output", default=None, metavar="DIR",
+        help="bulk: output directory for captions_<shard>.jsonl, their crc "
+             "sidecars and the bulk_manifest.json resume frontier",
+    )
+    p.add_argument(
+        "--bulk_shard_rows", type=int, default=None, metavar="N",
+        help="bulk: images per output shard, the resume grain",
     )
     p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
@@ -136,6 +173,14 @@ def build_config(argv: Optional[List[str]] = None):
         )
     if args.shard_cache is not None:
         config = config.replace(shard_cache=args.shard_cache)
+    if args.verify_shards is not None:
+        config = config.replace(verify_shards=args.verify_shards)
+    if args.bulk_input is not None:
+        config = config.replace(bulk_input=args.bulk_input)
+    if args.bulk_output is not None:
+        config = config.replace(bulk_output=args.bulk_output)
+    if args.bulk_shard_rows is not None:
+        config = config.replace(bulk_shard_rows=args.bulk_shard_rows)
     if args.port is not None:
         config = config.replace(serve_port=args.port)
     if args.max_batch is not None:
@@ -164,12 +209,28 @@ def build_config(argv: Optional[List[str]] = None):
         raise SystemExit("--sweep only applies to --phase=eval")
     return config, {
         "model_file": args.model_file, "load": args.load, "load_cnn": args.load_cnn,
-        "sweep": args.sweep,
+        "sweep": args.sweep, "repair_shards": args.repair_shards,
     }
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     config, cli = build_config(argv)
+    if cli["repair_shards"]:
+        import json
+
+        from .data.integrity import repair_shards
+
+        try:
+            report = repair_shards(config)
+        except FileNotFoundError:
+            print(
+                "sat_tpu_torch: --repair_shards: no shard cache exists for this config "
+                f"(looked under {config.shard_cache_dir!r})",
+                file=sys.stderr, flush=True,
+            )
+            return 2
+        print(json.dumps(report, indent=2, sort_keys=True))
+        return 0
     if config.phase not in PORTED_PHASES:
         raise SystemExit(
             f"sat_tpu_torch: phase {config.phase!r} is not ported yet "
@@ -182,6 +243,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from . import runtime
     from .resilience import retry
+    from .resilience.quarantine import DATA_CORRUPTION_EXIT_CODE, SystemicCorruption
 
     retry.configure(config.io_retries, config.io_retry_base_s)
     if config.phase == "train":
@@ -196,8 +258,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             # the run trained, but a checkpoint it depends on did not land
             print(f"sat_tpu_torch: WARNING: {e}", file=sys.stderr, flush=True)
             return 1
+        except SystemicCorruption as e:
+            # the data is rotten, not the process: a rerun re-reads the rot
+            print(f"sat_tpu_torch: FATAL: {e}", file=sys.stderr, flush=True)
+            return DATA_CORRUPTION_EXIT_CODE
         # a graceful SIGTERM/SIGINT stop returns here too: exit 0, resume with --load
         return 0
+    if config.phase == "bulk":
+        from .bulk.runner import run_bulk
+        from .resilience.faultinject import SimulatedPreemption
+
+        try:
+            return run_bulk(config, model_file=cli["model_file"])
+        except SimulatedPreemption as e:
+            # an injected preemption: exit like a killed process; a
+            # relaunch resumes from the manifest frontier
+            print(f"sat_tpu_torch: {e}", file=sys.stderr, flush=True)
+            return 1
+        except SystemicCorruption as e:
+            print(f"sat_tpu_torch: FATAL: {e}", file=sys.stderr, flush=True)
+            return DATA_CORRUPTION_EXIT_CODE
     if config.phase == "eval":
         if cli["sweep"]:
             sweep = runtime.evaluate_sweep(config)

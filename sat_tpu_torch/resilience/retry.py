@@ -1,5 +1,4 @@
-"""Retrying host IO — the port's copy of ``sat_tpu.resilience.retry``
-(without its fault-injection hook and telemetry counter).
+"""Retrying host IO — the port's copy of ``sat_tpu.resilience.retry``.
 
 ``retry_io`` wraps the durable-IO call sites (checkpoint reads and
 writes, caption-file reads) with bounded retries, exponential backoff
@@ -7,7 +6,9 @@ and jitter.  Errors that signal a wrong program or environment (missing
 file, permission, a path that is a directory) raise at once; transient
 transport errors (EIO, EAGAIN, ESTALE and kin, the hiccups of a network
 mount) back off and retry; anything that is not an ``OSError``
-propagates untouched.
+propagates untouched.  Every attempt first passes the
+``SAT_FI_IO_FAILURES`` injection hook (``resilience.faultinject``); each
+retry counts ``io/retries`` on the telemetry registry.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import random
 import sys
 import time
 from typing import Callable, Optional, Tuple, TypeVar
+
+from .. import telemetry
+from .faultinject import consume_io_fault
 
 T = TypeVar("T")
 
@@ -83,15 +87,18 @@ def retry_io(
 ) -> T:
     """``fn()`` with up to ``retries`` retries on transient IO errors (by
     default three; backoff 50 ms doubling, capped at 2 s, jittered
-    ×0.5–1.5).  ``desc`` names the operation in the warnings."""
+    ×0.5–1.5).  ``desc`` names the operation in the warnings and is what
+    ``SAT_FI_IO_FAILURES=n:substr`` matches against."""
     budget = _defaults["retries"] if retries is None else max(0, int(retries))
     base = _defaults["base_delay_s"] if base_delay_s is None else float(base_delay_s)
     for attempt in range(budget + 1):
         try:
+            consume_io_fault(desc)
             return fn()
         except OSError as e:
             if not is_retryable(e) or attempt == budget:
                 raise
+            telemetry.count("io/retries")
             delay = backoff_delay(attempt, base_delay_s=base, max_delay_s=max_delay_s)
             print(
                 f"sat_tpu_torch: transient IO error on {desc} (attempt {attempt + 1}/"

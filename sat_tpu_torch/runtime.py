@@ -15,7 +15,13 @@
 * with ``save_attention_maps``, eval and test also write per-image
   attention panels and ``attn.jsonl`` / ``attn.html``.
 
-``decode_dataset`` drives eval and test: the prefetching JPEG loader, a
+All three phases build their feed with :func:`make_loader`: the shard
+cache per ``shard_cache`` (``data.shards``), the prefetching loader, and
+the run's quarantine (a bad JPEG or caption is ledgered to
+``quarantine.jsonl`` and replaced by a healthy row of its batch; see
+``resilience.quarantine``).
+
+``decode_dataset`` drives eval and test: the prefetching loader, a
 host→device feed one batch ahead (pinned host batches, ``non_blocking``
 copies), then per batch ``captioner.encode`` and the monolithic
 ``beam_search`` (whose attention step is the CUDA ``fused_attend`` on the
@@ -26,12 +32,9 @@ not overlap yet.  Entry points run on the card unless the caller passes
 
 Not ported yet, and raising ``NotImplementedError`` (:func:`check_ported`,
 :func:`check_train_ported`): mesh and context-parallel runs,
-``shard_cache="on"`` (``"auto"`` and ``"off"`` decode live: a cached row
-is bitwise the live decode's), ``telemetry``, ``blackbox``, the profiler
-window (``profile_dir``), a ``.npy`` reference checkpoint and
-``load_cnn``; for training also ``remat_decoder``, ``remat_cnn``,
-``diag_level``, ``fleet_telemetry`` and the quarantine.  A JPEG that
-cannot be decoded raises ``PrefetchDecodeError``.
+``telemetry``, ``blackbox``, the profiler window (``profile_dir``), a
+``.npy`` reference checkpoint and ``load_cnn``; for training also
+``remat_decoder``, ``remat_cnn``, ``diag_level`` and ``fleet_telemetry``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 from .config import Config
 from .data.dataset import DataSet, prepare_eval_data, prepare_test_data, prepare_train_data
 from .data.images import ImageLoader, PrefetchLoader
+from .data.shards import resolve_shard_cache
 from .data.vocabulary import Vocabulary, vocab_fingerprint
 from .device import resolve_device
 from .evalcap.eval import CocoEvalCap
@@ -56,6 +60,7 @@ from .ops.beam_search import BeamResult, beam_search
 from .resilience import lineage, retry
 from .resilience.lineage import CheckpointWriteError
 from .resilience.preempt import GracefulShutdown
+from .resilience.quarantine import QuarantineManager, ledger_path_for
 from .resilience.sentinel import AnomalySentinel
 from .resilience.watchdog import Watchdog, deadlines_from_config
 from .train.checkpoint import (
@@ -64,7 +69,7 @@ from .train.checkpoint import (
 )
 from .train.step import TrainState, create_train_state, make_train_step, step_generator
 from .utils.fileio import atomic_write
-from .utils.progress import Progress
+from .utils.progress import Progress, track
 from .utils.summary import SummaryWriter
 
 
@@ -79,7 +84,6 @@ def check_ported(config: Config) -> None:
         )
     # the other telemetry knobs act only with telemetry on, in both packages
     unported = {
-        "shard_cache": (config.shard_cache, ("auto", "off")),
         "telemetry": (config.telemetry, (False,)),
         "blackbox": (config.blackbox, (False,)),
         "profile_dir": (config.profile_dir, ("",)),
@@ -107,8 +111,6 @@ def check_train_ported(config: Config) -> None:
     unported = {
         "diag_level": (config.diag_level, "off"),
         "fleet_telemetry": (config.fleet_telemetry, False),
-        "quarantine_ledger": (config.quarantine_ledger, ""),
-        "quarantine_max_fraction": (config.quarantine_max_fraction, 0.5),
     }
     for name, (value, ported) in unported.items():
         if value != ported:
@@ -122,14 +124,34 @@ def check_train_ported(config: Config) -> None:
 # ---------------------------------------------------------------------------
 
 
+# One QuarantineManager per ledger path, i.e. per run: the systemic-
+# corruption ceiling is a run-level judgement, so the train and eval
+# loaders of one run share the bookkeeping.
+_QUARANTINES: Dict[str, QuarantineManager] = {}
+
+
+def _quarantine_for(config: Config) -> QuarantineManager:
+    path = ledger_path_for(config)
+    q = _QUARANTINES.get(path)
+    if q is None:
+        q = QuarantineManager(path, max_fraction=config.quarantine_max_fraction)
+        _QUARANTINES[path] = q
+    return q
+
+
 def make_loader(config: Config, dataset: DataSet) -> PrefetchLoader:
-    """The host-side input pipeline of a dataset: live JPEG decode in a
-    thread pool, ``prefetch_depth`` batches ahead."""
+    """The host-side input pipeline of a dataset: the shard cache resolved
+    per ``config.shard_cache`` (``data.shards``: build-or-load for "on",
+    an existing valid cache for "auto", live JPEG decode when none), the
+    prefetching loader ``prefetch_depth`` batches ahead, and the run's
+    quarantine."""
     return PrefetchLoader(
         dataset,
         ImageLoader(size=config.image_size, raw=config.device_preprocess),
         num_workers=config.num_data_workers,
         prefetch_depth=config.prefetch_depth,
+        shard_cache=resolve_shard_cache(config, dataset.image_files),
+        quarantine=_quarantine_for(config),
     )
 
 
@@ -501,7 +523,7 @@ def decode_dataset(
     prev: Optional[Tuple[BeamResult, List[str]]] = None
     feed = device_prefetch(make_loader(config, dataset), dev)
     try:
-        for batch in feed:
+        for batch in track(feed, dataset.num_batches, desc="decode"):
             out = decode_batch(
                 params, config, batch["images"], eos, valid_size,
                 return_alphas=config.save_attention_maps,

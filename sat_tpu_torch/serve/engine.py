@@ -9,9 +9,10 @@ PyTorch runs eagerly, so there are no AOT executables: ``warmup`` runs
 every bucket once on zeros instead, which builds the CUDA kernel and
 settles cuDNN's algorithm choice before the first request.  Continuous
 mode decodes through ``serve.slot_pool`` instead, which warms its own
-lanes.  The encode cache, quantization, canary/resident param slots, the
-wedge watchdog and telemetry spans are later slices of the port; their
-knobs raise here.
+lanes.  ``tel`` is the telemetry registry the engine's pools record into
+(the process-global one unless given).  The encode cache, quantization,
+canary/resident param slots, the wedge watchdog and the serve loop's
+spans are later slices of the port; their knobs raise here.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Config
 from ..data.images import ImageLoader
 from ..data.vocabulary import Vocabulary, vocab_fingerprint
@@ -109,9 +111,11 @@ class ServeEngine:
         state: ServingState,
         vocabulary: Vocabulary,
         device=None,
+        tel=None,
     ) -> None:
         check_ported(config)
         self.device = resolve_device(device)
+        self._tel = tel if tel is not None else telemetry.get()
         self.config = config
         self.vocabulary = vocabulary
         self.eos_id = vocabulary.word2idx["."]

@@ -15,9 +15,15 @@ ready.  The encode cache, the tier handoff and cloned canary/resident
 pools are later slices of the port; their knobs raise in
 ``engine.check_ported``.
 
+With the telemetry registry enabled (``tel``, the engine's by default)
+each lane encode waits for the device and records ``serve/encode`` and
+``serve/encode_lane<k>``; with it off, admission stays fully
+asynchronous.
+
 The pool owns device state and host bookkeeping (free slots, slot →
 payload binding) only; when to admit and step is the
-``ContinuousBatcher``'s.  Not thread-safe: one owner thread drives it.
+``ContinuousBatcher``'s (or the bulk runner's).  Not thread-safe: one
+owner thread drives it.
 """
 
 from __future__ import annotations
@@ -54,9 +60,10 @@ class PagedSlotPool:
     """``pages × page_width`` decode slots over a ``ServeEngine``'s
     params, on its device."""
 
-    def __init__(self, engine, pages=None, page_width=None) -> None:
+    def __init__(self, engine, pages=None, page_width=None, tel=None) -> None:
         config = engine.config
         self.engine = engine
+        self._tel = tel if tel is not None else engine._tel
         self.config = config
         self.device = engine.device
         self.pages = int(pages if pages is not None else config.serve_slot_pages)
@@ -170,10 +177,24 @@ class PagedSlotPool:
                 self._mask[s] = True
             self._carry = init_slots(
                 self.engine.decoder_params, self.config, self._carry,
-                self.engine.encode_images(images), self._on_device(slot_src),
+                self._encode_lane(images), self._on_device(slot_src),
                 self._on_device(admit_mask), beam_size=self.beam_size,
             )
         return admitted
+
+    def _encode_lane(self, images: np.ndarray) -> torch.Tensor:
+        """Encode one lane; with telemetry on, wait the encode out and
+        record its window (the seed consumes the contexts at once, so off
+        it stays asynchronous)."""
+        t0 = time.perf_counter_ns()
+        contexts = self.engine.encode_images(images)
+        if self._tel.enabled:
+            if contexts.is_cuda:
+                torch.cuda.synchronize(contexts.device)
+            dur = time.perf_counter_ns() - t0
+            self._tel.record("serve/encode", t0, dur)
+            self._tel.record(f"serve/encode_lane{images.shape[0]}", t0, dur)
+        return contexts
 
     def step(self) -> torch.Tensor:
         """One decode step over the pool: the window at depth 1.  Returns

@@ -1,8 +1,11 @@
-"""sat_tpu_torch.telemetry — the run identity stamped on artifacts, and
-the attention exporters (``telemetry.exporters``).
+"""sat_tpu_torch.telemetry — host-side tracing and run-health metrics, the
+port's copy of ``sat_tpu.telemetry``'s host half.
 
-The port's copy of ``sat_tpu.telemetry.run_id``.  Host-side span tracing,
-heartbeats and the profiler window are not ported yet.
+Ring-buffered spans, counters and gauges (``spans``), the pollable
+``heartbeat.json`` writer (``heartbeat``), the busy-span accounting of
+``metering``, and the attention exporters (``exporters``).  The registry
+is off (the null object) until a caller enables it; ``--phase bulk``
+always does.  Only ``spans`` is imported eagerly.
 """
 
 from __future__ import annotations
@@ -10,10 +13,35 @@ from __future__ import annotations
 import os
 import time
 
+from .spans import (  # noqa: F401
+    NULL_SPAN,
+    NULL_TELEMETRY,
+    NullTelemetry,
+    Telemetry,
+    count,
+    disable,
+    enable,
+    enabled,
+    gauge,
+    get,
+    record,
+    span,
+)
+
 # One id per process lifetime: every artifact a run writes carries it, so
 # post-hoc joins never depend on file mtimes or directory layout.
 RUN_ID = f"{int(time.time()):x}-{os.getpid()}"
 
+# Version of the artifact contract (heartbeat.json); bump it when a field
+# changes meaning, not when fields are added.
+SCHEMA_VERSION = 1
+
 
 def run_id() -> str:
     return RUN_ID
+
+
+def process_identity() -> tuple:
+    """(process_index, process_count) stamped on multi-host artifacts.  The
+    port runs one process on one device, so (0, 1)."""
+    return 0, 1

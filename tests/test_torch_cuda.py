@@ -1,7 +1,7 @@
 """sat_tpu_torch on the card: the CUDA ``fused_attend`` (unmasked and
 masked bodies) against its plain version, the serving path (batch and
-continuous) and the train and eval-loss steps on the card against the
-CPU, and the kernel's refusal to be differentiated.  Marked
+continuous), the bulk path and the train and eval-loss steps on the card
+against the CPU, and the kernel's refusal to be differentiated.  Marked
 ``cuda``; each test skips without a card.  Run on a GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -317,3 +317,65 @@ def test_eval_loss_step_launches_the_kernel_once_a_step(cuda):
         assert launched == (config.max_caption_length if dev == "cuda" else 0)
     for k, v in got["cpu"].items():
         np.testing.assert_allclose(float(got["cuda"][k]), float(v), rtol=1e-5, err_msg=k)
+
+
+def test_bulk_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``run_bulk`` at the small float32 size over 9 JPEGs and one file that
+    is not a JPEG: the card (masked kernel) and the CPU (plain versions)
+    write the same files, captions and quarantine markers, log-probs within
+    1e-4; the card's run launched the masked kernel, the unmasked never."""
+    import json
+    import os
+
+    import cv2
+
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.bulk.runner import run_bulk
+    from sat_tpu_torch.config import Config
+    from sat_tpu_torch.data.vocabulary import Vocabulary, vocab_fingerprint
+    from sat_tpu_torch.resilience import lineage
+    from sat_tpu_torch.train.checkpoint import param_shapes
+
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    rng = np.random.default_rng(2)
+    for i in range(9):
+        cv2.imwrite(str(corpus / f"img{i}.jpg"), rng.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    (corpus / "zz_broken.jpg").write_bytes(b"not a jpeg")
+    config = Config(
+        image_size=32, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16,
+        dim_attend_layer=16, dim_decode_layer=32, vocabulary_size=50, compute_dtype="float32",
+        max_caption_length=8, beam_size=2, serve_slot_pages=2, serve_page_width=2,
+        heartbeat_interval=0.0, shard_cache="off", bulk_input=str(corpus), bulk_shard_rows=4,
+        vocabulary_file=str(tmp_path / "vocabulary.csv"), save_dir=str(tmp_path / "models"),
+    )
+    vocab = Vocabulary(50)
+    vocab.build([f"w{i} ." for i in range(60)])
+    vocab.save(config.vocabulary_file)
+    flat = {k: rng.uniform(-0.08, 0.08, s).astype(np.float32) for k, s in param_shapes(config).items()}
+    flat["params/decoder/decode/fc_2/bias"][vocab.word2idx["."]] -= 2.0
+    os.makedirs(config.save_dir)
+    path = os.path.join(config.save_dir, "1.npz")
+    np.savez(path, **flat, global_step=np.asarray(1, np.int32))
+    lineage.write_sidecar(path, vocab=vocab_fingerprint(config.vocabulary_file, config.vocabulary_size))
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / dev)
+        before = (fa.fused_attend.launches, fa.fused_attend.masked_launches)
+        try:
+            assert run_bulk(config.replace(bulk_output=out, summary_dir=str(tmp_path / f"{dev}_summary")),
+                            model_file=path, device=dev) == 0
+        finally:
+            telemetry.disable()
+        if dev == "cuda":
+            assert fa.fused_attend.launches == before[0]
+            assert fa.fused_attend.masked_launches > before[1]
+        rows[dev] = [json.loads(line) for n in sorted(os.listdir(out)) if n.endswith(".jsonl")
+                     for line in open(os.path.join(out, n))]
+    assert len(rows["cuda"]) == 10
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        assert (a["file"], a.get("quarantined"), a.get("substituted_from")) == (
+            b["file"], b.get("quarantined"), b.get("substituted_from"))
+        assert [c["caption"] for c in a["captions"]] == [c["caption"] for c in b["captions"]]
+        np.testing.assert_allclose([c["log_prob"] for c in a["captions"]],
+                                   [c["log_prob"] for c in b["captions"]], rtol=0, atol=1e-4)

@@ -299,9 +299,11 @@ def test_cli_builds_eval_and_test_configs(tmp_path):
     )
     assert (config.phase, config.beam_size, config.shard_cache) == ("eval", 2, "off")
     assert (config.batch_size, config.max_eval_ann_num) == (20, 96)
-    assert opts == {"model_file": None, "load": False, "load_cnn": False, "sweep": True}
+    assert opts == {"model_file": None, "load": False, "load_cnn": False, "sweep": True,
+                    "repair_shards": False}
     _, opts = cli.build_config(["--phase", "test", "--model_file", "5.npz", "--load", "--load_cnn"])
-    assert opts == {"model_file": "5.npz", "load": True, "load_cnn": True, "sweep": False}
+    assert opts == {"model_file": "5.npz", "load": True, "load_cnn": True, "sweep": False,
+                    "repair_shards": False}
     path = str(tmp_path / "eval.json")
     config.replace(beam_size=4).save(path)
     config, opts = cli.build_config(["--config", path, "--sweep"])
@@ -344,7 +346,7 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
     assert [line.split(":")[0] for line in out] == ["step 3", "step 7"]
     assert "Bleu_4=0.5000" in out[0] and "CIDEr=0.2500" in out[1]
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--phase", "bulk"])
+        cli.main(["--phase", "route"])
 
 
 @pytest.mark.parametrize(
@@ -352,7 +354,6 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
     [
         {"mesh_shape": (2, 1)},
         {"context_parallel": 2},
-        {"shard_cache": "on"},
         {"telemetry": True},
         {"blackbox": True},
         {"profile_dir": "prof"},

@@ -28,12 +28,17 @@ def _port_sources():
 
 def test_import_loads_neither_jax_nor_sat_tpu():
     """The runtime (train, eval, test), the train step and optimizer, the
-    scorers and the CLI, then every submodule, import in a fresh
-    interpreter without loading jax, flax, optax or any sat_tpu module."""
+    scorers, the CLI, the bulk runner and the input pipeline's cache,
+    integrity, quarantine and fault hooks, then every submodule, import in
+    a fresh interpreter without loading jax, flax, optax or any sat_tpu
+    module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sat_tpu_torch.runtime, sat_tpu_torch.evalcap, sat_tpu_torch.cli\n"
         "import sat_tpu_torch.train.step, sat_tpu_torch.train.optimizer\n"
+        "import sat_tpu_torch.bulk.runner, sat_tpu_torch.data.shards, sat_tpu_torch.data.integrity\n"
+        "import sat_tpu_torch.resilience.quarantine, sat_tpu_torch.resilience.faultinject\n"
+        "import sat_tpu_torch.telemetry.heartbeat\n"
         "from sat_tpu_torch.runtime import train, setup_train_state\n"
         "names = [m.name for m in pkgutil.walk_packages(sat_tpu_torch.__path__, 'sat_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"

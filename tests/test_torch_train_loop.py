@@ -23,7 +23,7 @@ from sat_tpu_torch import cli, runtime
 from sat_tpu_torch.config import Config
 from sat_tpu_torch.data import dataset
 from sat_tpu_torch.data.vocabulary import vocab_fingerprint
-from sat_tpu_torch.resilience import lineage
+from sat_tpu_torch.resilience import faultinject, lineage
 from sat_tpu_torch.resilience.lineage import CheckpointWriteError
 from sat_tpu_torch.train import step as step_mod
 from sat_tpu_torch.train.checkpoint import load_flat, state_to_flat
@@ -286,9 +286,6 @@ def test_cli_train_needs_a_card_unless_patched_to_the_cpu(coco_fixture, tmp_path
         {"blackbox": True},
         {"profile_dir": "/nonexistent/profile"},
         {"fleet_telemetry": True},
-        {"shard_cache": "on"},
-        {"quarantine_ledger": "/nonexistent/q.jsonl"},
-        {"quarantine_max_fraction": 0.25},
         {"cnn": "resnet50"},
         {"encoder_quant": "int8"},
     ],
@@ -298,6 +295,54 @@ def test_unported_train_knobs_raise(coco_fixture, tmp_path, knob):
     config = port_config(coco_fixture, str(tmp_path)).replace(**knob)
     with pytest.raises(NotImplementedError, match="not ported"):
         runtime.train(config, device="cpu")
+
+
+def test_train_over_the_shard_cache_is_bitwise_the_live_run(coco_fixture, trained, tmp_path):
+    """``shard_cache="on"`` builds the cache over the training images and
+    trains from it: the same 6 steps, bitwise, as the live-decode run."""
+    config = port_config(coco_fixture, str(tmp_path), shard_cache="on", shard_cache_dir=str(tmp_path / "cache"))
+    state = runtime.train(config, device="cpu")
+    assert os.path.exists(os.path.join(config.shard_cache_dir, "r32-v1", "manifest.json"))
+    a, b = state_to_flat(state), state_to_flat(trained[1])
+    assert sorted(a) == sorted(b)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_quarantine_ledger_knob_places_the_ledger(coco_fixture, tmp_path, monkeypatch):
+    """A caption zeroed by ``SAT_FI_BAD_CAPTION_AT`` is quarantined as
+    ``caption_all_oov`` at its (pass, batch, row), into the file
+    ``quarantine_ledger`` names, and the run completes."""
+    faultinject.reset_io_faults()
+    monkeypatch.setenv("SAT_FI_BAD_CAPTION_AT", "3")
+    ledger = str(tmp_path / "ledger" / "q.jsonl")
+    config = port_config(coco_fixture, str(tmp_path), quarantine_ledger=ledger, save_period=0)
+    assert runtime.train(config, device="cpu").step == 6
+    with open(ledger) as f:
+        lines = [json.loads(line) for line in f]
+    assert [(e["reason"], e["kind"], e["pos"]) for e in lines] == [("caption_all_oov", "caption", [0, 0, 2])]
+    assert not os.path.exists(os.path.join(config.summary_dir, "quarantine.jsonl"))
+
+
+def test_quarantine_max_fraction_trips_the_ceiling(tmp_path, monkeypatch):
+    """A fixture of 32 images, a quarter of them undecodable
+    (``SAT_FI_BAD_IMAGE_EVERY=4``): under the default ceiling (half the
+    rows seen) 8 steps train on substituted rows; at 0.25 the eighth
+    quarantined file trips it and the CLI exits 87."""
+    from tests.fixtures import make_coco_fixture
+
+    fixture = make_coco_fixture(str(tmp_path / "coco"), num_images=32)
+    monkeypatch.setenv("SAT_FI_BAD_IMAGE_EVERY", "4")
+    config = port_config(fixture, str(tmp_path / "half"), max_steps=8, save_period=0)
+    assert runtime.train(config, device="cpu").step == 8
+    real = runtime.resolve_device
+    monkeypatch.setattr(runtime, "resolve_device", lambda device=None: real("cpu"))
+    path = str(tmp_path / "train.json")
+    port_config(fixture, str(tmp_path / "quarter"), max_steps=8, save_period=0, phase="train",
+                quarantine_max_fraction=0.25).save(path)
+    assert cli.main(["--config", path]) == 87
+    with open(os.path.join(str(tmp_path / "quarter"), "summary", "quarantine.jsonl")) as f:
+        assert len(f.readlines()) == 8
 
 
 def test_rng_impl_is_accepted_and_does_not_change_the_run(coco_fixture, tmp_path):
@@ -399,3 +444,32 @@ def test_retention_keeps_the_newest_and_last_good(coco_fixture, tmp_path):
     runtime.train(config, device="cpu")
     assert lineage.checkpoint_steps(config.save_dir) == [6]
     assert sorted(os.listdir(config.save_dir)) == ["6.npz", "6.npz.sha256", "LAST_GOOD", "config.json"]
+
+
+def test_fault_plan_reads_the_jax_knobs_and_poisons_a_port_state(trained):
+    """The port's ``FaultPlan`` reads the same ``SAT_FI_*`` knobs as the
+    JAX package's; ``maybe_poison`` turns a train state's params and the
+    metrics to NaN at its step, once."""
+    import dataclasses
+
+    from sat_tpu.resilience.faultinject import FaultPlan as JaxFaultPlan
+
+    env = {"SAT_FI_DIE_AT_STEP": "5", "SAT_FI_NAN_AT_STEP": "2", "SAT_FI_CORRUPT_SHARD_ROW": "3",
+           "SAT_FI_BAD_IMAGE_EVERY": "7", "SAT_FI_SLOW_STEP_MS": "1"}
+    plan = faultinject.FaultPlan.from_env(env)
+    assert dataclasses.asdict(plan) == dataclasses.asdict(JaxFaultPlan.from_env(env))
+    _, state = trained
+    metrics = {"total_loss": torch.tensor(1.0)}
+    assert plan.maybe_poison(1, state, metrics) == (state, metrics)
+    poisoned, bad = plan.maybe_poison(2, state, metrics)
+    leaves = [poisoned.params["decoder"]]
+    while leaves:
+        x = leaves.pop()
+        if isinstance(x, dict):
+            leaves += list(x.values())
+        else:
+            assert torch.isnan(x).all()
+    assert torch.isnan(bad["total_loss"]) and poisoned.step == state.step
+    assert plan.maybe_poison(2, state, metrics) == (state, metrics)
+    with pytest.raises(faultinject.SimulatedPreemption):
+        plan.maybe_kill(5)

@@ -2,12 +2,16 @@
 
 The port of ``sat_tpu.cli`` for the phases ported so far, which run on
 the card.  It takes the JAX CLI's flags for them (``--config``, ``--set
-key=value``, ``--model_file``, ``--load``, ``--train_cnn``, ``--load_cnn``
-(which raises: not ported), ``--beam_size``, ``--shard_cache``,
-``--verify_shards``, ``--sweep``; for serve ``--port``, ``--max_batch``,
-``--max_wait_ms``, ``--serve_mode``, ``--serve_decode_depth``; for bulk
-``--bulk_input``, ``--bulk_output``, ``--bulk_shard_rows``), so one
-config file and one override list drive both packages.
+key=value``, ``--model_file`` (a ``<step>.npz``, or a ``.npy`` the
+reference wrote), ``--load``, ``--train_cnn``, ``--load_cnn`` with
+``--cnn_model_file`` (train only; eval and test ignore it, as in the JAX
+CLI), ``--beam_size``, ``--shard_cache``, ``--verify_shards``,
+``--sweep``, ``--encoder_quant`` (serve and bulk quantize; the other
+phases encode in full precision); for serve ``--port``,
+``--max_batch``, ``--max_wait_ms``, ``--serve_mode``,
+``--serve_decode_depth``; for bulk ``--bulk_input``, ``--bulk_output``,
+``--bulk_shard_rows``), so one config file and one override list drive
+both packages.
 
 Exit codes: train exits 1 when a checkpoint it depends on did not land,
 and 0 after a graceful SIGTERM/SIGINT stop (resume with ``--load``);
@@ -63,7 +67,8 @@ def _parse_override(config: Config, key: str, raw: str):
 
 
 def build_config(argv: Optional[List[str]] = None):
-    """Returns (Config, cli options: model_file, load, sweep)."""
+    """Returns (Config, cli options: model_file, load, load_cnn,
+    cnn_model_file, sweep, repair_shards)."""
     p = argparse.ArgumentParser(
         prog="sat_tpu_torch", description="Show, Attend and Tell on PyTorch/CUDA"
     )
@@ -80,7 +85,11 @@ def build_config(argv: Optional[List[str]] = None):
     p.add_argument("--model_file", default=None, help="explicit checkpoint file")
     p.add_argument(
         "--load_cnn", action="store_true",
-        help="import a pretrained CNN (not ported yet: raises)",
+        help="train: import a pretrained CNN from --cnn_model_file before training",
+    )
+    p.add_argument(
+        "--cnn_model_file", default="./vgg16_no_fc.npy",
+        help="pretrained CNN npy (the reference's nested format)",
     )
     p.add_argument("--train_cnn", action="store_true", help="train: train the CNN too")
     p.add_argument(
@@ -145,6 +154,15 @@ def build_config(argv: Optional[List[str]] = None):
         help="bulk: images per output shard, the resume grain",
     )
     p.add_argument(
+        "--encoder_quant", choices=("off", "bf16", "int8"), default=None,
+        help="serve and bulk: quantize the frozen CNN once at load, before "
+             "warmup: 'int8' per-output-channel symmetric int8 kernels with "
+             "calibrated activation scales (int8 x int8 -> int32 convs, the "
+             "dequant fused into the bias add), 'bf16' bfloat16 kernels; "
+             "batch norms folded into the convs.  Train, eval and test "
+             "encode in full precision",
+    )
+    p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="override any Config field, repeatable",
     )
@@ -173,6 +191,8 @@ def build_config(argv: Optional[List[str]] = None):
         )
     if args.shard_cache is not None:
         config = config.replace(shard_cache=args.shard_cache)
+    if args.encoder_quant is not None:
+        config = config.replace(encoder_quant=args.encoder_quant)
     if args.verify_shards is not None:
         config = config.replace(verify_shards=args.verify_shards)
     if args.bulk_input is not None:
@@ -209,7 +229,8 @@ def build_config(argv: Optional[List[str]] = None):
         raise SystemExit("--sweep only applies to --phase=eval")
     return config, {
         "model_file": args.model_file, "load": args.load, "load_cnn": args.load_cnn,
-        "sweep": args.sweep, "repair_shards": args.repair_shards,
+        "cnn_model_file": args.cnn_model_file, "sweep": args.sweep,
+        "repair_shards": args.repair_shards,
     }
 
 
@@ -250,7 +271,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .resilience.lineage import CheckpointWriteError
 
         state = runtime.setup_train_state(
-            config, load=cli["load"], model_file=cli["model_file"], load_cnn=cli["load_cnn"]
+            config, load=cli["load"], model_file=cli["model_file"],
+            load_cnn=cli["load_cnn"], cnn_model_file=cli["cnn_model_file"],
         )
         try:
             runtime.train(config, state=state)
@@ -285,16 +307,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 line = "  ".join(f"{k}={v:.4f}" for k, v in sweep[step].items())
                 print(f"step {step}: {line}")
             return 0
-        state = runtime.setup_state(
-            config, load=True, model_file=cli["model_file"], load_cnn=cli["load_cnn"]
-        )
+        state = runtime.setup_state(config, load=True, model_file=cli["model_file"])
         scores = runtime.evaluate(config, state=state)
         for k, v in scores.items():
             print(f"{k}: {v:.4f}")
     else:
-        state = runtime.setup_state(
-            config, load=True, model_file=cli["model_file"], load_cnn=cli["load_cnn"]
-        )
+        state = runtime.setup_state(config, load=True, model_file=cli["model_file"])
         runtime.test(config, state=state)
     return 0
 

@@ -1,17 +1,24 @@
-"""The full caption model: VGG16 encoder, attention-LSTM decoder and the
-training loss — the port of ``sat_tpu.models.captioner``.
+"""The full caption model: the CNN encoder (VGG16 or ResNet50), the
+attention-LSTM decoder and the training loss — the port of
+``sat_tpu.models.captioner``.
 
-* :func:`encode` maps images to the context grid for decoding;
+* :func:`encode` maps images to the context grid for decoding: through
+  the float32 CNN (ResNet50's batch norms on their running statistics),
+  or through the quantized encoder when the params carry one (``qcnn``,
+  built by ``nn.quant`` for serving with ``encoder_quant``);
 * :func:`compute_loss` is the three-part objective: masked cross-entropy
   over the mask sum, the doubly-stochastic attention penalty and the L2
   (plus optional L1 activity) regularization, and token accuracy.  The
-  CNN trains only with ``train_cnn``; otherwise it runs under
-  ``torch.no_grad`` and its contexts carry no gradient;
-* :func:`init_params` is a random initialization in the JAX package's
+  CNN trains only with ``train_cnn`` (ResNet50's batch norms then on the
+  batch's statistics, the updated running statistics returned);
+  otherwise it runs under ``torch.no_grad`` and its contexts carry no
+  gradient;
+* :func:`init_variables` is a random initialization in the JAX package's
   distributions, drawn from an explicit generator.
 
-The quantized encoder (``encoder_quant``) and ResNet50 are later slices
-of the port and raise here.
+The params these functions take are the ``params_from_flat`` layout
+(``{"cnn", "decoder"}``), plus ``"batch_stats"`` for ResNet50 (and
+``"qcnn"`` in place of ``"cnn"`` for a quantized encoder).
 """
 
 from __future__ import annotations
@@ -24,22 +31,11 @@ import torch
 from ..config import Config
 from ..data.images import ILSVRC_2012_MEAN
 from ..nn.layers import regularization_loss
-from ..train.checkpoint import param_shapes, params_from_flat
+from ..nn.quant import quantized_encode
+from ..train.checkpoint import batch_stats_from_flat, param_shapes, params_from_flat
 from .decoder import teacher_forced_decode
+from .resnet50 import resnet50
 from .vgg16 import vgg16
-
-
-def check_encoder(config: Config) -> None:
-    """Raise on encoder knobs this slice of the port does not implement."""
-    if config.cnn != "vgg16":
-        raise NotImplementedError(
-            f"cnn={config.cnn!r} is not ported yet (only 'vgg16')"
-        )
-    if config.encoder_quant != "off":
-        raise NotImplementedError(
-            f"encoder_quant={config.encoder_quant!r} is not ported yet "
-            "(only 'off')"
-        )
 
 
 def _preprocess(images: torch.Tensor) -> torch.Tensor:
@@ -52,15 +48,33 @@ def _preprocess(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
+def _cnn(params: Dict[str, Any], config: Config, images: torch.Tensor, train: bool,
+         with_activity: bool = False):
+    """The float32-parameter CNN over preprocessed images: (contexts, new
+    batch statistics or None, conv L1 activity).  Only VGG16's convs sow
+    activity; ResNet50's run without an activation, so theirs is 0."""
+    dtype = getattr(torch, config.compute_dtype)
+    if config.cnn == "vgg16":
+        if with_activity:
+            contexts, activity = vgg16(params["cnn"], images, dtype, with_activity=True)
+            return contexts, None, activity
+        return vgg16(params["cnn"], images, dtype), None, 0.0
+    contexts, new_stats = resnet50(params["cnn"], params["batch_stats"], images, dtype, train)
+    return contexts, new_stats, 0.0
+
+
 def encode(
     params: Dict[str, Any], config: Config, images: torch.Tensor
 ) -> torch.Tensor:
     """images [B, S, S, 3] → contexts [B, N, D] float32, on ``images``' device.
 
     The CNN runs in ``config.compute_dtype`` (TF32 is off once the card
-    is resolved, ``device.resolve_device``)."""
-    check_encoder(config)
-    return vgg16(params["cnn"], _preprocess(images), getattr(torch, config.compute_dtype))
+    is resolved, ``device.resolve_device``); with ``encoder_quant`` on and
+    a ``qcnn`` in the params, the quantized encoder runs instead."""
+    images = _preprocess(images)
+    if config.encoder_quant != "off" and "qcnn" in params:
+        return quantized_encode(params, config, images)
+    return _cnn(params, config, images, train=False)[0]
 
 
 def token_ce(
@@ -90,27 +104,24 @@ def compute_loss(
     """Forward pass and the total loss.
 
     ``batch``: images [B, S, S, 3] (or precomputed 'contexts' [B, N, D]),
-    word_idxs [B, T] int, masks [B, T].  ``params``: the
-    ``params_from_flat`` layout (``{"cnn", "decoder"}``).  Dropout masks
-    come from ``generator``, which training needs.  Returns (total_loss,
-    aux) with aux's 'metrics' (the five losses and accuracy) and
-    'attentions' [B, N] (Σ_t α·mask)."""
+    word_idxs [B, T] int, masks [B, T].  Dropout masks come from
+    ``generator``, which training needs.  Returns (total_loss, aux) with
+    aux's 'metrics' (the five losses and accuracy), 'attentions' [B, N]
+    (Σ_t α·mask) and 'batch_stats' (ResNet50's updated running
+    statistics when the CNN trains, else None)."""
     if train and generator is None:
         raise ValueError("compute_loss(train=True) requires a generator for dropout")
-    check_encoder(config)
     fc_act_scale = config.fc_activity_regularizer_scale if train else 0.0
     train_cnn = train and config.train_cnn
     conv_act_scale = config.conv_activity_regularizer_scale if train_cnn else 0.0
-    conv_activity = 0.0
-    dtype = getattr(torch, config.compute_dtype)
+    conv_activity, new_stats = 0.0, None
     if "contexts" in batch:
         contexts = batch["contexts"]
     elif train_cnn:
-        images = _preprocess(batch["images"])
-        if conv_act_scale > 0:
-            contexts, conv_activity = vgg16(params["cnn"], images, dtype, with_activity=True)
-        else:
-            contexts = vgg16(params["cnn"], images, dtype)
+        contexts, new_stats, conv_activity = _cnn(
+            params, config, _preprocess(batch["images"]), train=True,
+            with_activity=conv_act_scale > 0,
+        )
     else:
         with torch.no_grad():
             contexts = encode(params, config, batch["images"])
@@ -133,7 +144,7 @@ def compute_loss(
     attention_loss = config.attention_loss_factor * 0.5 * (diffs * diffs).sum() / (B * N)
 
     reg_loss = regularization_loss(
-        params,
+        {"cnn": params["cnn"], "decoder": params["decoder"]},
         fc_scale=config.fc_kernel_regularizer_scale if train else 0.0,
         conv_scale=config.conv_kernel_regularizer_scale,
         train_cnn=train_cnn,
@@ -152,23 +163,28 @@ def compute_loss(
             "accuracy": accuracy,
         },
         "attentions": attentions,
+        "batch_stats": new_stats,
     }
     return total_loss, aux
 
 
-def init_params(config: Config, generator: torch.Generator, device="cpu") -> Dict[str, Any]:
-    """The port of ``init_variables``: random parameters in the JAX
-    package's distributions (conv kernels
-    glorot-uniform, dense kernels, the LSTM kernel and the word embedding
-    uniform in ±``fc_kernel_initializer_scale``, biases zero).  Drawn on
-    the CPU from ``generator`` in the order of the flat checkpoint names,
-    then moved to ``device``.  (Not JAX's bits: the tests carry JAX's
-    weights across through the bridge.)"""
-    check_encoder(config)
+def init_variables(
+    config: Config, generator: torch.Generator, device="cpu"
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port of ``init_variables``: (params, batch statistics) in the
+    JAX package's distributions — conv kernels glorot-uniform, dense
+    kernels, the LSTM kernel and the word embedding uniform in
+    ±``fc_kernel_initializer_scale``, biases zero, batch-norm scales one;
+    running means zero and variances one.  Drawn on the CPU from
+    ``generator`` in the order of the flat checkpoint names, then moved to
+    ``device``.  (Not JAX's bits: the tests carry JAX's weights across
+    through the bridge.)"""
     flat = {}
     for name, shape in param_shapes(config).items():
-        if name.endswith("/bias"):
-            flat[name] = torch.zeros(shape).numpy()
+        leaf = name.rsplit("/", 1)[1]
+        if leaf in ("bias", "mean", "scale", "var"):
+            fill = torch.ones if leaf in ("scale", "var") else torch.zeros
+            flat[name] = fill(shape).numpy()
             continue
         if len(shape) == 4:      # HWIO conv kernel
             receptive = shape[0] * shape[1]
@@ -177,4 +193,9 @@ def init_params(config: Config, generator: torch.Generator, device="cpu") -> Dic
             limit = config.fc_kernel_initializer_scale
         u = torch.rand(shape, generator=generator, dtype=torch.float32)
         flat[name] = ((u * 2.0 - 1.0) * limit).numpy()
-    return params_from_flat(flat, config, device)
+    return params_from_flat(flat, config, device), batch_stats_from_flat(flat, config, device)
+
+
+def init_params(config: Config, generator: torch.Generator, device="cpu") -> Dict[str, Any]:
+    """The parameters of :func:`init_variables`."""
+    return init_variables(config, generator, device)[0]

@@ -53,3 +53,17 @@ def vgg16(
     b = x.shape[0]
     contexts = x.permute(0, 2, 3, 1).reshape(b, -1, DIM_CTX).float()
     return (contexts, sum(activity[1:], activity[0])) if with_activity else contexts
+
+
+def quant_forward(conv, images: torch.Tensor) -> torch.Tensor:
+    """The topology walker of the quantized encoder (``nn.quant``): the
+    graph above with each conv a ``conv(name, x, stride=1, relu=False)``
+    of the chosen precision.  ``images`` NHWC float32 → contexts
+    [B, N, 512] float32."""
+    x = images.permute(0, 3, 1, 2)
+    for name, _features, pool_after in VGG_LAYERS:
+        x = conv(name, x, relu=True)
+        if pool_after:
+            x = max_pool2d(x)
+    b = x.shape[0]
+    return x.permute(0, 2, 3, 1).reshape(b, -1, DIM_CTX).float()

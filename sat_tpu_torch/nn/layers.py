@@ -1,5 +1,6 @@
 """NN primitives — the port of ``sat_tpu.nn.layers``: the encoder's SAME
-conv and max pool, inverted dropout and the L2 regularization sum.
+conv and max pool, batch norm, inverted dropout and the L2 regularization
+sum.
 
 These functions take NCHW tensors (any memory format; the encoder keeps
 ``channels_last``).  Padding follows Flax's ``padding="SAME"``, which is
@@ -10,7 +11,7 @@ and applied explicitly.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,22 +40,30 @@ def _apply(x: torch.Tensor, pads, value: float):
     return F.pad(x, (wl, wh, hl, hh), value=value), (0, 0)
 
 
+def pad_same(x: torch.Tensor, kernel: Sequence[int], stride: int, value: float):
+    """(input, padding) for an op with ``kernel`` and ``stride`` under the
+    SAME rule: asymmetric pads applied here with ``value``, symmetric ones
+    returned for the op to apply."""
+    return _apply(x, same_padding(x.shape[-2:], kernel, (stride, stride)), value)
+
+
 def conv2d_same(
     x: torch.Tensor,
     weight: torch.Tensor,
-    bias: torch.Tensor,
+    bias: Optional[torch.Tensor],
     stride: int = 1,
     relu: bool = True,
 ) -> torch.Tensor:
     """SAME-padded conv with OIHW ``weight``, in ``x``'s dtype.
 
-    As in Flax's ``nn.Conv`` with ``dtype=compute_dtype``, the bias is
-    added to the conv output in the compute dtype (not fused into the
-    conv's fp32 accumulator), then relu."""
-    pads = same_padding(x.shape[-2:], weight.shape[-2:], (stride, stride))
-    x, padding = _apply(x, pads, 0.0)
+    As in Flax's ``nn.Conv`` with ``dtype=compute_dtype``, the bias (none
+    for ResNet50's convs but conv1) is added to the conv output in the
+    compute dtype (not fused into the conv's fp32 accumulator), then
+    relu."""
+    x, padding = pad_same(x, weight.shape[-2:], stride, 0.0)
     y = F.conv2d(x, weight, None, stride, padding)
-    y.add_(bias.view(1, -1, 1, 1))
+    if bias is not None:
+        y.add_(bias.view(1, -1, 1, 1))
     if relu:
         y.relu_()
     return y
@@ -64,8 +73,7 @@ def max_pool2d(
     x: torch.Tensor, pool_size: int = 2, strides: int = 2
 ) -> torch.Tensor:
     """SAME-padded max pool (pads are -inf, as XLA's reduce_window)."""
-    pads = same_padding(x.shape[-2:], (pool_size, pool_size), (strides, strides))
-    x, padding = _apply(x, pads, float("-inf"))
+    x, padding = pad_same(x, (pool_size, pool_size), strides, float("-inf"))
     return F.max_pool2d(x, pool_size, strides, padding)
 
 
@@ -116,3 +124,39 @@ def _leaves(node):
             yield from _leaves(value)
         else:
             yield value
+
+
+BN_EPSILON = 1e-3    # TF1's batch-norm defaults, as the JAX package's ResNet50 sets them
+BN_MOMENTUM = 0.99
+
+
+def batch_norm(
+    x: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    stats: Dict[str, torch.Tensor],
+    train: bool = False,
+):
+    """Flax's ``nn.BatchNorm`` over NCHW ``x`` (per channel), returning
+    ``(y, new_stats)``.
+
+    Inference uses the running ``stats`` (``mean``, ``var``) and returns
+    ``new_stats=None``.  Training normalizes with the batch's statistics,
+    taken in float32 (at least) as Flax's fast variance does (``E[x²] − E[x]²``,
+    biased, clipped at 0), and returns the running update ``0.99·ra +
+    0.01·batch`` (no gradient).  Either way ``(x − mean)·(rsqrt(var + ε)·
+    scale) + bias`` runs in float32 (at least) and is cast back to ``x``'s
+    dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    new_stats = None
+    if train:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        new_stats = {
+            "mean": BN_MOMENTUM * stats["mean"] + (1.0 - BN_MOMENTUM) * mean.detach(),
+            "var": BN_MOMENTUM * stats["var"] + (1.0 - BN_MOMENTUM) * var.detach(),
+        }
+    else:
+        mean, var = stats["mean"], stats["var"]
+    mul = torch.rsqrt(var + BN_EPSILON) * params["scale"]
+    y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + params["bias"].view(1, -1, 1, 1)
+    return y.to(x.dtype), new_stats

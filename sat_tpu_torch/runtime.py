@@ -30,11 +30,19 @@ package; here the search syncs with the host once a step, so the two do
 not overlap yet.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
+Both CNNs run in every phase.  A ``model_file`` ending in ``.npy`` is a
+checkpoint written by the reference itself, imported by name
+(``train.checkpoint.import_reference_checkpoint``); training imports a
+pretrained CNN with ``load_cnn`` from ``cnn_model_file``, as the JAX
+package does (eval and test ignore it there too).  ``encoder_quant``
+acts only where a serve engine is built (serve, bulk): train, eval and
+test encode in full precision, as in the JAX package.
+
 Not ported yet, and raising ``NotImplementedError`` (:func:`check_ported`,
 :func:`check_train_ported`): mesh and context-parallel runs,
-``telemetry``, ``blackbox``, the profiler window (``profile_dir``), a
-``.npy`` reference checkpoint and ``load_cnn``; for training also
-``remat_decoder``, ``remat_cnn``, ``diag_level`` and ``fleet_telemetry``.
+``telemetry``, ``blackbox`` and the profiler window (``profile_dir``);
+for training also ``remat_decoder``, ``remat_cnn``, ``diag_level`` and
+``fleet_telemetry``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from .data.shards import resolve_shard_cache
 from .data.vocabulary import Vocabulary, vocab_fingerprint
 from .device import resolve_device
 from .evalcap.eval import CocoEvalCap
-from .models.captioner import check_encoder, encode, init_params
+from .models.captioner import encode, init_variables
 from .ops.beam_search import BeamResult, beam_search
 from .resilience import lineage, retry
 from .resilience.lineage import CheckpointWriteError
@@ -64,8 +72,9 @@ from .resilience.quarantine import QuarantineManager, ledger_path_for
 from .resilience.sentinel import AnomalySentinel
 from .resilience.watchdog import Watchdog, deadlines_from_config
 from .train.checkpoint import (
-    AsyncCheckpointWriter, ServingState, check_vocab, compute_params, load_flat,
-    restore_checkpoint, save_checkpoint, state_from_flat, to_device, walk_back,
+    AsyncCheckpointWriter, ServingState, apply_cnn_import, check_vocab, compute_params,
+    import_reference_checkpoint, load_flat, restore_checkpoint, save_checkpoint, state_from_flat,
+    to_device, walk_back,
 )
 from .train.step import TrainState, create_train_state, make_train_step, step_generator
 from .utils.fileio import atomic_write
@@ -75,7 +84,6 @@ from .utils.summary import SummaryWriter
 
 def check_ported(config: Config) -> None:
     """Raise on eval/test (and train) knobs whose subsystem is not ported yet."""
-    check_encoder(config)
     if int(np.prod(config.mesh_shape)) > 1 or config.context_parallel > 1:
         raise NotImplementedError(
             f"mesh and context-parallel runs (mesh_shape={tuple(config.mesh_shape)}, "
@@ -195,19 +203,25 @@ def setup_state(
     config: Config,
     load: bool = False,
     model_file: Optional[str] = None,
-    load_cnn: bool = False,
     device=None,
 ) -> ServingState:
     """Decoding params on ``device`` (the card unless "cpu").
 
-    An explicit ``model_file`` is loaded as-is; with ``load`` the newest
-    checkpoint under ``save_dir`` that verifies and loads; with neither,
-    a random initialization from ``config.seed``.  The configured
+    An explicit ``model_file`` is loaded as-is (a reference ``.npy`` is
+    imported over a random initialization from ``config.seed``); with
+    ``load`` the newest checkpoint under ``save_dir`` that verifies and
+    loads; with neither, that random initialization.  The configured
     vocabulary must match the one the checkpoint's sidecar attests."""
     dev = resolve_device(device)
-    _check_load(load_cnn, model_file)
-    if not (load or model_file):
-        return ServingState(params=init_params(config, torch.Generator().manual_seed(config.seed), dev), step=0)
+    if not (load or model_file) or _is_reference(model_file):
+        params, batch_stats = init_variables(config, torch.Generator().manual_seed(config.seed), dev)
+        state = ServingState(params=params, step=0, batch_stats=batch_stats)
+        if not model_file:
+            return state
+        state, count = import_reference_checkpoint(state, model_file)
+        _check_count(count, model_file)
+        print(f"{count} tensors loaded from checkpoint (step {state.step}).")
+        return state
     expect = vocab_fingerprint(config.vocabulary_file, config.vocabulary_size)
     if model_file:
         check_vocab(model_file, expect)
@@ -219,14 +233,14 @@ def setup_state(
     return state
 
 
-def _check_load(load_cnn: bool, model_file: Optional[str]) -> None:
-    if load_cnn:
-        raise NotImplementedError("load_cnn (a pretrained CNN import) is not ported to sat_tpu_torch yet")
-    if model_file and model_file.endswith(".npy"):
-        raise NotImplementedError(
-            f"{model_file}: importing the reference's .npy checkpoint is not ported "
-            "to sat_tpu_torch yet (only <step>.npz)"
-        )
+def _is_reference(model_file: Optional[str]) -> bool:
+    """A checkpoint the reference itself wrote (its flat ``.npy``)."""
+    return bool(model_file) and model_file.endswith(".npy")
+
+
+def _check_count(count: int, source: str) -> None:
+    if count == 0:
+        raise ValueError(f"checkpoint {source} restored 0 tensors")
 
 
 def setup_train_state(
@@ -234,25 +248,32 @@ def setup_train_state(
     load: bool = False,
     model_file: Optional[str] = None,
     load_cnn: bool = False,
+    cnn_model_file: Optional[str] = None,
     seed: Optional[int] = None,
     device=None,
 ) -> TrainState:
     """A train state on ``device`` (the card unless "cpu"): parameters drawn
-    from ``seed`` (default ``config.seed``) and fresh slots, then, with
+    from ``seed`` (default ``config.seed``) and fresh slots; then, with
     ``load`` or ``model_file``, a checkpoint restored over them (the
-    vocabulary fingerprint checked; a file that loads no tensor raises)."""
+    vocabulary fingerprint checked; a reference ``.npy`` imported at step
+    0; a file that loads no tensor raises); then, with ``load_cnn``, the
+    pretrained CNN of ``cnn_model_file`` imported over the CNN."""
     dev = resolve_device(device)
-    _check_load(load_cnn, model_file)
     seed = config.seed if seed is None else seed
     state = create_train_state(config, torch.Generator().manual_seed(seed), dev)
     if load or model_file:
-        state, count = restore_checkpoint(
-            state, model_file=model_file, save_dir=config.save_dir,
-            expect_vocab=vocab_fingerprint(config.vocabulary_file, config.vocabulary_size),
-        )
-        if count == 0:
-            raise ValueError(f"checkpoint {model_file or config.save_dir} restored 0 tensors")
+        if _is_reference(model_file):
+            state, count = import_reference_checkpoint(state, model_file)
+        else:
+            state, count = restore_checkpoint(
+                state, model_file=model_file, save_dir=config.save_dir,
+                expect_vocab=vocab_fingerprint(config.vocabulary_file, config.vocabulary_size),
+            )
+        _check_count(count, model_file or config.save_dir)
         print(f"{count} tensors loaded from checkpoint (step {state.step}).")
+    if load_cnn and cnn_model_file:
+        state, count = apply_cnn_import(state, cnn_model_file)
+        print(f"{count} pretrained CNN tensors loaded.")
     return state
 
 
@@ -484,7 +505,7 @@ def decode_dataset(
     image id kept once."""
     check_ported(config)
     dev = resolve_device(device)
-    params = compute_params(to_device(state.params, dev), config)
+    params = compute_params(to_device(state.params, dev), config, to_device(state.batch_stats, dev))
     eos = _eos_id(vocabulary)
     valid_size = len(vocabulary.words)
 

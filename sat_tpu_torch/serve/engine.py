@@ -10,9 +10,17 @@ every bucket once on zeros instead, which builds the CUDA kernel and
 settles cuDNN's algorithm choice before the first request.  Continuous
 mode decodes through ``serve.slot_pool`` instead, which warms its own
 lanes.  ``tel`` is the telemetry registry the engine's pools record into
-(the process-global one unless given).  The encode cache, quantization,
-canary/resident param slots, the wedge watchdog and the serve loop's
-spans are later slices of the port; their knobs raise here.
+(the process-global one unless given).
+
+With ``encoder_quant`` on, the engine quantizes the CNN once at load,
+before any warmup (``nn.quant``), and then holds only the quantized
+encoder: the float32 CNN and ResNet50's running statistics (folded into
+the conv biases) leave its params.  Batch dispatches and the slot pool's
+encode lanes all encode through :meth:`ServeEngine.encode_images`.
+
+The encode cache, canary/resident param slots, the wedge watchdog and
+the serve loop's spans are later slices of the port; their knobs raise
+here.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from ..config import Config
 from ..data.images import ImageLoader
 from ..data.vocabulary import Vocabulary, vocab_fingerprint
 from ..device import resolve_device
-from ..models.captioner import check_encoder, encode
+from ..models.captioner import encode
+from ..nn.quant import quantize_encoder
 from ..ops.beam_search import BeamResult, beam_search
 from ..resilience import lineage
 from ..train.checkpoint import (
@@ -52,7 +61,6 @@ class BucketOverflow(ValueError):
 
 def check_ported(config: Config) -> None:
     """Raise on serve knobs whose subsystem is not ported yet."""
-    check_encoder(config)
     unported = {
         "encode_cache": (config.encode_cache, "off"),
         "serve_quality": (config.serve_quality, "off"),
@@ -120,7 +128,25 @@ class ServeEngine:
         self.vocabulary = vocabulary
         self.eos_id = vocabulary.word2idx["."]
         self.step = int(state.step)
-        self._params = compute_params(to_device(state.params, self.device), config)
+        params = to_device(state.params, self.device)
+        batch_stats = to_device(state.batch_stats, self.device)
+        self.encoder_quant = config.encoder_quant
+        self.quantize_seconds = 0.0
+        if config.encoder_quant != "off":
+            t0 = time.perf_counter()
+            qcnn = quantize_encoder({"cnn": params["cnn"], "batch_stats": batch_stats}, config)
+            self._params = {**compute_params({"decoder": params["decoder"]}, config), "qcnn": qcnn}
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.quantize_seconds = time.perf_counter() - t0
+            print(
+                f"sat_tpu_torch: serve encoder quantized ({config.encoder_quant}, {config.cnn}) "
+                f"in {self.quantize_seconds:.2f}s",
+                file=sys.stderr,
+                flush=True,
+            )
+        else:
+            self._params = compute_params(params, config, batch_stats)
         self.buckets = _effective_buckets(config.serve_buckets, config.serve_max_batch)
         self.loader = ImageLoader(size=config.image_size, raw=config.device_preprocess)
         self._image_dtype = np.uint8 if config.device_preprocess else np.float32

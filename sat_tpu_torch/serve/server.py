@@ -11,8 +11,9 @@ park on an Event while the batcher owns the device.
   504 past the deadline (``X-Deadline-Ms`` or ``serve_deadline_ms``).
 * ``GET /healthz`` — 200 ``{"status": "ok"}`` when ready, 503 otherwise.
 * ``GET /stats`` — queue depth, requests served, batcher counters,
-  ``fused_attend`` launches (unmasked and masked) and, in continuous
-  mode, a ``slot_pool`` block.
+  ``fused_attend`` launches (unmasked and masked), the engine's
+  ``encoder_quant`` and ``quantize_seconds`` and, in continuous mode, a
+  ``slot_pool`` block.
 
 ``serve_mode="batch"`` dispatches whole padded batches
 (:class:`MicroBatcher`); ``"continuous"`` seeds requests into a
@@ -180,6 +181,10 @@ class CaptionServer:
                 "launches": fused_attend.launches,
                 "masked_launches": fused_attend.masked_launches,
             }},
+            "engine": {
+                "encoder_quant": self.engine.encoder_quant,
+                "quantize_seconds": round(self.engine.quantize_seconds, 3),
+            },
         }
         if self.pool is not None:
             out["slot_pool"] = {

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..models import resnet50
 from ..models.vgg16 import VGG_LAYERS
 from ..resilience import lineage
 from ..resilience.lineage import CheckpointWriteError
@@ -55,16 +56,25 @@ class VocabMismatchError(RuntimeError):
 
 def param_shapes(config: Config) -> Dict[str, Tuple[int, ...]]:
     """Flat name → shape (JAX layout) of every parameter of ``config``'s
-    model: the names ``sat_tpu.models.init_variables`` creates."""
-    if config.cnn != "vgg16":
-        raise NotImplementedError(f"cnn={config.cnn!r} is not ported yet (only 'vgg16')")
+    model, and of ResNet50's running statistics (``batch_stats/...``): the
+    names ``sat_tpu.models.init_variables`` creates."""
     c = config
     shapes: Dict[str, Tuple[int, ...]] = {}
-    cin = 3
-    for name, features, _ in VGG_LAYERS:
-        shapes[f"params/cnn/{name}/conv/kernel"] = (3, 3, cin, features)
-        shapes[f"params/cnn/{name}/conv/bias"] = (features,)
-        cin = features
+    if c.cnn == "vgg16":
+        cin = 3
+        for name, features, _ in VGG_LAYERS:
+            shapes[f"params/cnn/{name}/conv/kernel"] = (3, 3, cin, features)
+            shapes[f"params/cnn/{name}/conv/bias"] = (features,)
+            cin = features
+    else:
+        for block, conv, bn, k, cin, cout, _stride in resnet50.conv_specs():
+            at = f"{block}/" if block else ""
+            shapes[f"params/cnn/{at}{conv}/conv/kernel"] = (k, k, cin, cout)
+            if conv == "conv1":
+                shapes["params/cnn/conv1/conv/bias"] = (cout,)
+            for leaf, prefix in (("scale", "params/cnn/"), ("bias", "params/cnn/"),
+                                 ("mean", "batch_stats/"), ("var", "batch_stats/")):
+                shapes[f"{prefix}{at}{bn}/{leaf}"] = (cout,)
     E, H, D, N, V = c.dim_embedding, c.num_lstm_units, c.dim_ctx, c.num_ctx, c.vocabulary_size
     dec = "params/decoder/"
 
@@ -105,15 +115,18 @@ def _skipped(name: str) -> bool:
     return name == "global_step" or name.startswith("optimizer/")
 
 
-def params_from_flat(
-    flat: Dict[str, np.ndarray], config: Config, device="cpu"
-) -> Params:
-    """JAX flat names → ``{"cnn": {layer: {"weight" OIHW, "bias"}},
-    "decoder": <the JAX nested dict>}`` of float32 tensors on ``device``."""
-    expected = param_shapes(config)
-    params: Params = {"cnn": {}, "decoder": {}}
+def _unflatten(flat: Dict[str, np.ndarray], config: Config, prefix: str, device) -> Dict[str, Any]:
+    """The entries of ``flat`` under ``prefix`` as nested dicts of float32
+    tensors on ``device``; a conv's ``conv/kernel`` (HWIO) becomes the
+    layer's ``weight`` (OIHW), its ``conv/bias`` the layer's ``bias``.
+    Other prefixes but optimizer slots and ``global_step`` are refused by
+    name; an unknown or missing name or a wrong shape raises."""
+    expected = {k: v for k, v in param_shapes(config).items() if k.startswith(prefix)}
+    tree: Dict[str, Any] = {}
     for name, value in flat.items():
-        if _skipped(name):
+        if not name.startswith(prefix):
+            if not (_skipped(name) or name.startswith(("params/", "batch_stats/"))):
+                raise KeyError(f"checkpoint entry {name!r} is not a parameter of this config")
             continue
         if name not in expected:
             raise KeyError(f"checkpoint entry {name!r} is not a parameter of this config")
@@ -123,22 +136,37 @@ def params_from_flat(
                 f"checkpoint entry {name!r} has shape {arr.shape}, config expects {expected[name]}"
             )
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        parts = name.split("/")[1:]
-        if parts[0] == "cnn":
-            layer, leaf = parts[1], parts[3]
+        *keys, leaf = name[len(prefix):].split("/")
+        if keys[-1] == "conv":
+            keys = keys[:-1]
             if leaf == "kernel":
-                params["cnn"].setdefault(layer, {})["weight"] = t.permute(3, 2, 0, 1).contiguous().to(device)
-            else:
-                params["cnn"].setdefault(layer, {})["bias"] = t.to(device)
-            continue
-        node = params["decoder"]
-        for key in parts[1:-1]:
+                leaf, t = "weight", t.permute(3, 2, 0, 1).contiguous()
+        node = tree
+        for key in keys:
             node = node.setdefault(key, {})
-        node[parts[-1]] = t.to(device)
-    missing = sorted(set(expected) - set(params_to_flat(params)))
+        node[leaf] = t.to(device)
+    have = {name for name, _, _ in named_leaves(tree, prefix)}
+    missing = sorted(set(expected) - have)
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} parameter(s): {missing[:4]}")
-    return params
+    return tree
+
+
+def params_from_flat(
+    flat: Dict[str, np.ndarray], config: Config, device="cpu"
+) -> Params:
+    """JAX flat names → ``{"cnn": {layer: {"weight" OIHW, "bias"}, ...},
+    "decoder": <the JAX nested dict>}`` of float32 tensors on ``device``
+    (ResNet50's blocks nest one level deeper, its batch norms hold
+    ``scale`` and ``bias``); ``batch_stats/`` entries are left to
+    :func:`batch_stats_from_flat`."""
+    return _unflatten(flat, config, "params/", device)
+
+
+def batch_stats_from_flat(flat: Dict[str, np.ndarray], config: Config, device="cpu") -> Params:
+    """ResNet50's running statistics (``batch_stats/<block>/<bn>/{mean,
+    var}``) as nested dicts of tensors on ``device``; ``{}`` for VGG16."""
+    return _unflatten(flat, config, "batch_stats/", device)
 
 
 def named_leaves(node, prefix: str):
@@ -173,10 +201,11 @@ def params_to_flat(params: Params) -> Dict[str, np.ndarray]:
 
 
 def state_to_flat(state) -> Dict[str, np.ndarray]:
-    """``TrainState`` → flat dict: ``params/``, ``optimizer/`` (optax's
-    chain state: the slots of the trainable sub-dict) and ``global_step``,
-    every array a copy."""
+    """``TrainState`` → flat dict: ``params/``, ``batch_stats/`` (ResNet50),
+    ``optimizer/`` (optax's chain state: the slots of the trainable
+    sub-dict) and ``global_step``, every array a copy."""
     flat = params_to_flat(state.params)
+    flat.update({name: _host(t, conv) for name, t, conv in named_leaves(state.batch_stats, "batch_stats/")})
     flat.update({name: _host(t, conv) for name, t, conv in named_leaves(state.opt_state, "optimizer/")})
     flat["global_step"] = np.asarray(state.step, np.int32)
     return flat
@@ -277,35 +306,48 @@ class ServingState(NamedTuple):
 
     params: Dict[str, Any]   # params_from_flat layout, on the decoding device
     step: int                # the checkpoint's global_step
+    batch_stats: Dict[str, Any] = {}   # ResNet50's running statistics; {} for VGG16
 
 
 def state_from_flat(flat: Dict[str, np.ndarray], config: Config, device, source: str) -> ServingState:
-    """``params_from_flat`` on ``device`` and the checkpoint's step; a file
-    that holds no parameter at all is an error."""
+    """``params_from_flat`` and ``batch_stats_from_flat`` on ``device`` and
+    the checkpoint's step; a file that holds no parameter at all is an
+    error."""
     if not any(k.startswith("params/") for k in flat):
         raise ValueError(f"checkpoint {source} restored 0 tensors")
     return ServingState(
         params=params_from_flat(flat, config, device),
         step=int(np.asarray(flat.get("global_step", 0))),
+        batch_stats=batch_stats_from_flat(flat, config, device),
     )
 
 
-def compute_params(params: Dict[str, Any], config: Config) -> Dict[str, Any]:
+def _cast_cnn(node: Dict[str, Any], dt: torch.dtype) -> Dict[str, Any]:
+    """A conv layer's ``weight`` (``channels_last``) and ``bias`` in ``dt``;
+    batch-norm ``scale``/``bias`` stay float32 (the normalization runs in
+    float32)."""
+    if "weight" in node:
+        return {
+            k: v.to(dt).contiguous(memory_format=torch.channels_last) if k == "weight" else v.to(dt)
+            for k, v in node.items()
+        }
+    return {k: _cast_cnn(v, dt) if isinstance(v, dict) else v for k, v in node.items()}
+
+
+def compute_params(
+    params: Dict[str, Any], config: Config, batch_stats: Optional[Dict[str, Any]] = None
+) -> Dict[str, Any]:
     """The decoding copy of the params (serving, eval and test): conv
     weights and dense kernels and biases cast once to ``compute_dtype``
     (each op would round them to it anyway, so values are unchanged),
-    conv weights ``channels_last``.
-    Kept float32: the LSTM bias (added after the float32 cast), the word
-    embedding (gathered in float32) and the attention ``fc_2`` kernel (the
-    fused kernel's float32 ``w2``)."""
+    conv weights ``channels_last``; ResNet50's running statistics ride
+    along under ``"batch_stats"``, where ``captioner.encode`` reads them.
+    Kept float32: batch-norm parameters and statistics, the LSTM bias
+    (added after the float32 cast), the word embedding (gathered in
+    float32) and the attention ``fc_2`` kernel (the fused kernel's float32
+    ``w2``).  A tree without ``"cnn"`` (the quantized encoder's) casts
+    the decoder alone."""
     dt = getattr(torch, config.compute_dtype)
-    cnn = {
-        name: {
-            "weight": p["weight"].to(dt).contiguous(memory_format=torch.channels_last),
-            "bias": p["bias"].to(dt),
-        }
-        for name, p in params["cnn"].items()
-    }
 
     def cast(node, path):
         out = {}
@@ -318,7 +360,12 @@ def compute_params(params: Dict[str, Any], config: Config) -> Dict[str, Any]:
                 out[key] = value.to(dt)
         return out
 
-    return {"cnn": cnn, "decoder": cast(params["decoder"], "")}
+    out = {"decoder": cast(params["decoder"], "")}
+    if "cnn" in params:
+        out["cnn"] = _cast_cnn(params["cnn"], dt)
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
 
 
 def to_device(node, device):
@@ -473,6 +520,191 @@ def restore_checkpoint(
         flat, _ = walk_back(save_dir, expect_vocab)
     else:
         raise FileNotFoundError(f"no checkpoint found (save_dir={save_dir!r})")
-    count = assign_flat(state.params, "params/", flat) + assign_flat(state.opt_state, "optimizer/", flat)
+    count = (
+        assign_flat(state.params, "params/", flat)
+        + assign_flat(state.batch_stats, "batch_stats/", flat)
+        + assign_flat(state.opt_state, "optimizer/", flat)
+    )
     step = int(np.asarray(flat["global_step"])) if "global_step" in flat else state.step
     return state._replace(step=step), count
+
+
+def trim_checkpoint(in_path: str, out_path: str) -> int:
+    """Strip the optimizer slots from a checkpoint (the reference's
+    trim tool); returns the number of entries kept."""
+    kept = {k: v for k, v in load_flat(in_path).items() if not k.startswith("optimizer/")}
+    atomic_write(out_path, "wb", lambda f: np.savez(f, **kept))
+    return len(kept)
+
+
+# ---------------------------------------------------------------------------
+# the reference's own formats: pretrained-CNN import, checkpoint import/export
+# ---------------------------------------------------------------------------
+
+# parameter-name aliases across the caffe-converted npy files and TF scopes
+_KERNEL_NAMES = {"kernel", "weights", "W", "w"}
+_BIAS_NAMES = {"bias", "biases", "b", "offset", "beta"}
+_SCALE_NAMES = {"scale", "gamma"}
+_MEAN_NAMES = {"mean", "moving_mean", "mu"}
+_VAR_NAMES = {"variance", "moving_variance", "var"}
+
+_DECODER_SCOPES = ("word_embedding", "initialize", "attend", "decode")
+_BN_EXPORT_NAMES = {"scale": "gamma", "bias": "beta", "mean": "moving_mean", "var": "moving_variance"}
+
+
+def _nested_npy(data_path: str) -> Dict[str, Dict[str, np.ndarray]]:
+    raw = np.load(data_path, allow_pickle=True, encoding="latin1")
+    d = raw.item() if hasattr(raw, "item") and raw.dtype == object else dict(raw)
+    return {str(k): {str(p): np.asarray(a) for p, a in v.items()} for k, v in d.items()}
+
+
+def _find_op(tree: Any, op: str) -> Optional[Dict[str, Any]]:
+    """The dict node named ``op`` at any depth: ResNet50's convs and batch
+    norms sit one level below the reference's flat TF scopes, in their
+    block (``cnn["res2a"]["res2a_branch2a"]``)."""
+    if not isinstance(tree, dict):
+        return None
+    if op in tree and isinstance(tree[op], dict):
+        return tree[op]
+    for child in tree.values():
+        hit = _find_op(child, op)
+        if hit is not None:
+            return hit
+    return None
+
+
+def _set_key(dest: Dict[str, Any], key: str, value: np.ndarray) -> bool:
+    """Copy ``value`` into ``key`` of the op node (or the first child node
+    that has it) in place when the shapes agree.  A conv kernel arrives
+    HWIO and lands in the layer's OIHW ``weight``."""
+    leaf = "weight" if key == "kernel" else key
+    t = dest.get(leaf)
+    if isinstance(t, torch.Tensor):
+        if leaf == "weight" and value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        if tuple(t.shape) != tuple(value.shape):
+            return False
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(t.dtype))
+        return True
+    return any(isinstance(child, dict) and _set_key(child, key, value) for child in dest.values())
+
+
+def _place_nested(params_cnn: Dict[str, Any], batch_stats: Dict[str, Any],
+                  nested: Dict[str, Dict[str, np.ndarray]]) -> int:
+    """Place ``{op: {param: array}}`` entries into the CNN's parameters and
+    running statistics in place, alias-mapping the parameter names;
+    unknown ops and parameters are skipped, as the reference's
+    ``ignore_missing=True`` load does.  Returns the tensors placed."""
+    count = 0
+    for op_name, entries in nested.items():
+        for param_name, value in entries.items():
+            if param_name in _KERNEL_NAMES:
+                key, tree = "kernel", params_cnn
+            elif param_name in _SCALE_NAMES:
+                key, tree = "scale", params_cnn
+            elif param_name in _BIAS_NAMES:
+                key, tree = "bias", params_cnn
+            elif param_name in _MEAN_NAMES:
+                key, tree = "mean", batch_stats
+            elif param_name in _VAR_NAMES:
+                key, tree = "var", batch_stats
+            else:
+                continue
+            dest = _find_op(tree, op_name)
+            if dest is not None and _set_key(dest, key, np.asarray(value)):
+                count += 1
+    return count
+
+
+def load_pretrained_cnn(params: Params, batch_stats: Params, data_path: str) -> int:
+    """Import a pretrained CNN in the reference's nested npy format
+    (``vgg16_no_fc.npy``, ``resnet50_no_fc.npy``: ``{op: {param:
+    array}}``, ops named as the model's layers) into ``params["cnn"]``
+    and ``batch_stats`` in place; returns the tensors loaded."""
+    return _place_nested(params["cnn"], batch_stats, _nested_npy(data_path))
+
+
+def apply_cnn_import(state, nested_or_path: Any) -> Tuple[Any, int]:
+    """Import a nested CNN dict (or its npy path) into a ``TrainState`` or
+    ``ServingState`` in place; returns (state, tensors loaded)."""
+    if isinstance(nested_or_path, str):
+        nested_or_path = _nested_npy(nested_or_path)
+    return state, _place_nested(state.params["cnn"], state.batch_stats, nested_or_path)
+
+
+def import_reference_checkpoint(state, path: str, restore_step: bool = False) -> Tuple[Any, int]:
+    """Load a checkpoint written by the reference's own ``save()`` (a flat
+    ``{var.name: value}`` npy) into a ``TrainState`` or ``ServingState``
+    in place; returns (state, tensors loaded).
+
+    ``<scope>/.../kernel:0`` of the decoder scopes and
+    ``lstm/lstm_cell/{kernel,bias}:0`` map by name; CNN scopes (convs and
+    batch norms) go through the pretrained-CNN aliases; optimizer slots
+    (``OptimizeLoss/...``) are dropped.  ``global_step:0`` is adopted only
+    with ``restore_step``: fine-tuning an imported model starts at step 0."""
+    raw = np.load(path, allow_pickle=True, encoding="latin1").item()
+    decoder_flat: Dict[str, np.ndarray] = {}
+    cnn_nested: Dict[str, Dict[str, np.ndarray]] = {}
+    step = None
+    for name, value in raw.items():
+        parts = name.split(":")[0].split("/")
+        if parts[0] == "global_step":
+            step = int(np.asarray(value))
+        elif parts[0].startswith("OptimizeLoss") or "optimizer" in parts[0].lower():
+            continue
+        elif parts[0] == "lstm":
+            decoder_flat[f"params/decoder/lstm/{parts[-1]}"] = np.asarray(value)
+        elif parts[0] in _DECODER_SCOPES:
+            decoder_flat["params/decoder/" + "/".join(parts)] = np.asarray(value)
+        elif len(parts) >= 2:
+            cnn_nested.setdefault(parts[0], {})[parts[-1]] = np.asarray(value)
+    count = assign_flat(state.params, "params/", decoder_flat)
+    state, n_cnn = apply_cnn_import(state, cnn_nested)
+    if restore_step and step is not None:
+        state = state._replace(step=step)
+    return state, count + n_cnn
+
+
+def _export_cnn_tree(tree: Dict[str, Any], out: Dict[str, np.ndarray]) -> None:
+    """Reference TF-scope names for a CNN parameter or statistics tree: a
+    conv layer becomes ``<op>/kernel:0`` (HWIO) and ``<op>/bias:0``, a
+    batch norm ``<op>/{gamma,beta}:0`` or ``<op>/{moving_mean,
+    moving_variance}:0``; a block recurses."""
+    for op, sub in tree.items():
+        if not isinstance(sub, dict):
+            continue
+        if "weight" in sub:
+            for leaf, t in sub.items():
+                out[f"{op}/{'kernel' if leaf == 'weight' else leaf}:0"] = _host(t, leaf == "weight")
+        elif any(isinstance(sub.get(k), torch.Tensor) for k in _BN_EXPORT_NAMES):
+            for leaf, t in sub.items():
+                if leaf in _BN_EXPORT_NAMES and isinstance(t, torch.Tensor):
+                    out[f"{op}/{_BN_EXPORT_NAMES[leaf]}:0"] = _host(t, False)
+        else:
+            _export_cnn_tree(sub, out)
+
+
+def export_reference_checkpoint(state, path: str) -> int:
+    """Write the reference's flat ``{var.name: value}`` npy, the inverse of
+    :func:`import_reference_checkpoint`: decoder scopes by name, the LSTM
+    under ``lstm/lstm_cell/``, conv kernels HWIO, batch norms as
+    gamma/beta/moving_mean/moving_variance, ``global_step:0``; no
+    optimizer slots.  Returns the tensors written."""
+    flat: Dict[str, np.ndarray] = {}
+    for scope, sub in state.params.get("decoder", {}).items():
+        if scope == "lstm":
+            for leaf, t in sub.items():
+                flat[f"lstm/lstm_cell/{leaf}:0"] = _host(t, False)
+            continue
+        for name, node in sub.items():
+            if isinstance(node, dict):
+                for leaf, t in node.items():
+                    flat[f"{scope}/{name}/{leaf}:0"] = _host(t, False)
+            else:
+                flat[f"{scope}/{name}:0"] = _host(node, False)
+    _export_cnn_tree(state.params.get("cnn", {}), flat)
+    _export_cnn_tree(state.batch_stats or {}, flat)
+    flat["global_step:0"] = np.asarray(int(state.step), np.int64)
+    atomic_write(path, "wb", lambda f: np.save(f, np.array(flat, dtype=object), allow_pickle=True))
+    return len(flat) - 1  # global_step is bookkeeping, not a tensor

@@ -7,20 +7,25 @@ backward over the trainable leaves only, then the optax chain
 nothing with the host: its metrics stay device tensors until the caller
 fetches them.
 
+ResNet50's running statistics ride in ``TrainState.batch_stats``, out of
+the optimizer: with ``train_cnn`` a step's forward returns their update
+and the step copies it in place; with a frozen CNN they never change.
+
 The eval-loss step runs the same loss without dropout under
-``torch.no_grad``; its attention goes through the fused kernel on the
-card (the kernel has no backward, and this step needs none).
+``torch.no_grad`` (batch norms on the running statistics); its attention
+goes through the fused kernel on the card (the kernel has no backward,
+and this step needs none).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
-from ..models.captioner import compute_loss, init_params
+from ..models.captioner import compute_loss, init_variables
 from .optimizer import _leaves, make_optimizer
 
 Tree = Dict[str, Any]
@@ -28,7 +33,7 @@ Tree = Dict[str, Any]
 
 class TrainState(NamedTuple):
     params: Tree              # {"cnn", "decoder"}, the params_from_flat layout, float32
-    batch_stats: Tree         # {} for VGG16
+    batch_stats: Tree         # ResNet50's running statistics; {} for VGG16
     opt_state: List[Any]      # optax's chain state over the trainable sub-dict
     step: int                 # global step
 
@@ -50,23 +55,34 @@ def _like(tree: Tree, leaves) -> Tree:
     return build(tree)
 
 
-def state_from_params(params: Tree, config: Config, step: int = 0) -> TrainState:
-    """A train state over ``params`` with fresh optimizer slots; the
-    trainable leaves require grad, the frozen ones do not."""
+def state_from_params(
+    params: Tree, config: Config, step: int = 0, batch_stats: Optional[Tree] = None
+) -> TrainState:
+    """A train state over ``params`` (and ``batch_stats``) with fresh
+    optimizer slots; the trainable leaves require grad, the frozen ones
+    do not."""
     trainable, frozen = split_trainable(params, config)
     for leaf in _leaves(frozen):
         leaf.requires_grad_(False)
     for leaf in _leaves(trainable):
         leaf.requires_grad_(True)
     return TrainState(
-        params=params, batch_stats={}, opt_state=make_optimizer(config).init(trainable), step=step
+        params=params, batch_stats=batch_stats or {},
+        opt_state=make_optimizer(config).init(trainable), step=step,
     )
 
 
 def create_train_state(config: Config, generator: torch.Generator, device="cpu") -> TrainState:
-    """Random parameters (``captioner.init_params``, drawn from the CPU
-    ``generator``) on ``device``, and fresh slots."""
-    return state_from_params(init_params(config, generator, device), config)
+    """Random parameters and initial statistics (``captioner.init_variables``,
+    drawn from the CPU ``generator``) on ``device``, and fresh slots."""
+    params, batch_stats = init_variables(config, generator, device)
+    return state_from_params(params, config, batch_stats=batch_stats)
+
+
+def model_inputs(state: TrainState) -> Tree:
+    """The params tree ``compute_loss`` takes: the parameters, with the
+    running statistics beside them when the model has any."""
+    return {**state.params, "batch_stats": state.batch_stats} if state.batch_stats else state.params
 
 
 def _attention_metrics(att: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -77,6 +93,15 @@ def _attention_metrics(att: torch.Tensor) -> Dict[str, torch.Tensor]:
     }
 
 
+@torch.no_grad()
+def _copy_into(dst: Tree, src: Tree) -> None:
+    for key, value in src.items():
+        if isinstance(value, dict):
+            _copy_into(dst[key], value)
+        else:
+            dst[key].copy_(value)
+
+
 def make_train_step(config: Config):
     """Returns ``train_step(state, batch, generator) -> (state, metrics)``.
 
@@ -84,15 +109,19 @@ def make_train_step(config: Config):
     ``generator``: the dropout generator, on the same device.  Parameters
     and slots are updated in place; the returned state carries step + 1.
     Metrics: the five losses and accuracy, ``grad_norm`` (before the
-    clip) and ``attention/mean|std|max``, as 0-d device tensors."""
+    clip) and ``attention/mean|std|max``, as 0-d device tensors.  With
+    ``train_cnn``, ResNet50's running statistics take the forward's
+    update, in place."""
     optimizer = make_optimizer(config)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         trainable, _ = split_trainable(state.params, config)
         leaves = _leaves(trainable)
-        total, aux = compute_loss(state.params, config, batch, generator, train=True)
+        total, aux = compute_loss(model_inputs(state), config, batch, generator, train=True)
         grads = torch.autograd.grad(total, leaves)
         grad_norm = optimizer.step(trainable, _like(trainable, grads), state.opt_state)
+        if aux["batch_stats"] is not None:
+            _copy_into(state.batch_stats, aux["batch_stats"])
         metrics = {k: v.detach() for k, v in aux["metrics"].items()}
         metrics["grad_norm"] = grad_norm
         metrics.update(_attention_metrics(aux["attentions"].detach()))
@@ -107,7 +136,7 @@ def make_eval_loss_step(config: Config):
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        _, aux = compute_loss(state.params, config, batch, generator=None, train=False)
+        _, aux = compute_loss(model_inputs(state), config, batch, generator=None, train=False)
         return aux["metrics"]
 
     return eval_step

@@ -1,7 +1,9 @@
 """sat_tpu_torch on the card: the CUDA ``fused_attend`` (unmasked and
-masked bodies) against its plain version, the serving path (batch and
-continuous), the bulk path and the train and eval-loss steps on the card
-against the CPU, and the kernel's refusal to be differentiated.  Marked
+masked bodies) against its plain version, at VGG16's and ResNet50's
+grids, the serving path (batch and continuous, both CNNs), the bulk path
+and the train and eval-loss steps on the card against the CPU, the
+quantized encoder's int8 conv, and the kernel's refusal to be
+differentiated.  Marked
 ``cuda``; each test skips without a card.  Run on a GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -35,7 +37,9 @@ def _inputs(B, N, da, D, seed=0):
 @pytest.mark.parametrize(
     "B,N,da,D",
     [(96, 196, 512, 512), (5, 7, 24, 40), (1, 1, 4, 4), (3, 13, 13, 7), (2, 12000, 8, 300), (4, 49, 512, 2048),
-     (2, 5, 22, 38), (60, 196, 512, 512), (20, 196, 512, 512)],
+     (2, 5, 22, 38), (60, 196, 512, 512), (20, 196, 512, 512),
+     # ResNet50's grid: 7 positions a block, the cluster's eighth block owns none
+     (96, 49, 512, 2048), (60, 49, 512, 2048), (48, 49, 512, 2048), (3, 49, 512, 2048)],
 )
 def test_kernel_matches_plain_version(cuda, dtype, B, N, da, D):
     args = _inputs(B, N, da, D)
@@ -73,7 +77,8 @@ def _poison_dead_rows(args, mask):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pattern", ["all", "one", "alternate"])
-@pytest.mark.parametrize("B,N,da,D", [(48, 196, 512, 512), (5, 7, 24, 40), (3, 196, 512, 512), (2, 5, 22, 38)])
+@pytest.mark.parametrize("B,N,da,D", [(48, 196, 512, 512), (5, 7, 24, 40), (3, 196, 512, 512), (2, 5, 22, 38),
+                                      (48, 49, 512, 2048)])
 def test_masked_kernel_matches_plain_version_and_unmasked_kernel(cuda, B, N, da, D, pattern, dtype):
     """Dead rows come out +0.0 whatever their inputs; live rows are
     bitwise the unmasked kernel's on the same inputs and agree with the
@@ -104,7 +109,7 @@ def test_masked_kernel_matches_plain_version_and_unmasked_kernel(cuda, B, N, da,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,da,D", [(196, 512, 512), (5, 22, 38)])
+@pytest.mark.parametrize("N,da,D", [(196, 512, 512), (5, 22, 38), (49, 512, 2048)])
 def test_row_outputs_do_not_depend_on_the_batch(cuda, N, da, D, dtype):
     """One row placed at several indices of batches of 1 to 108 rows,
     beside other rows, with and without a mask (the row live, others
@@ -379,3 +384,52 @@ def test_bulk_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert [c["caption"] for c in a["captions"]] == [c["caption"] for c in b["captions"]]
         np.testing.assert_allclose([c["log_prob"] for c in a["captions"]],
                                    [c["log_prob"] for c in b["captions"]], rtol=0, atol=1e-4)
+
+
+def test_resnet50_serving_on_the_card_matches_the_cpu(cuda):
+    """The small float32 ResNet50 (64 px: N=4, D=2048; running statistics
+    drawn from a seed): contexts within 1e-4 of max|ctx| and the same
+    words on the card (B1) and on the CPU."""
+    from sat_tpu_torch.config import Config
+    from sat_tpu_torch.data.vocabulary import Vocabulary
+    from sat_tpu_torch.serve.engine import ServeEngine, ServingState
+    from sat_tpu_torch.train.checkpoint import batch_stats_from_flat, param_shapes, params_from_flat
+
+    config = Config(
+        cnn="resnet50", image_size=64, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16,
+        dim_attend_layer=16, dim_decode_layer=32, vocabulary_size=50,
+        compute_dtype="float32", serve_buckets=(4,), serve_max_batch=4,
+    )
+    rng = np.random.default_rng(2)
+    flat = {k: (rng.uniform(0.5, 1.5, s) if k.endswith(("/var", "/scale")) else rng.uniform(-0.08, 0.08, s))
+            .astype(np.float32) for k, s in param_shapes(config).items()}
+    vocab = Vocabulary(50)
+    vocab.build([f"w{i} ." for i in range(60)])
+    images = rng.integers(0, 256, size=(4, 64, 64, 3), dtype=np.uint8)
+    out, ctx = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = ServingState(params_from_flat(flat, config, dev), step=0,
+                             batch_stats=batch_stats_from_flat(flat, config, dev))
+        engine = ServeEngine(config, state, vocab, device=dev)
+        ctx[dev] = engine.encode_images(images).cpu()
+        before = fa.fused_attend.launches
+        out[dev] = engine.drain_output(engine.dispatch(images), 4)
+        assert (fa.fused_attend.launches > before) == (dev == "cuda")
+    assert ctx["cuda"].shape == (4, 4, 2048)
+    assert float((ctx["cuda"] - ctx["cpu"]).abs().max() / ctx["cpu"].abs().max()) <= 1e-4
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+
+
+@pytest.mark.parametrize("B,C,H,O,k,s", [(8, 3, 224, 64, 7, 2), (8, 64, 56, 64, 3, 1), (3, 256, 14, 512, 1, 2)])
+def test_int8_conv_on_the_card_is_the_cpus(cuda, B, C, H, O, k, s):
+    """The quantized encoder's int8 conv (im2col and ``torch._int_mm``):
+    int32 accumulators on the card bitwise the CPU's exact product, at
+    ResNet50's conv1, a 3×3 and a strided 1×1."""
+    from sat_tpu_torch.nn.quant import int8_conv
+
+    g = torch.Generator().manual_seed(B + C)
+    x = torch.randint(-127, 128, (B, C, H, H), generator=g).to(torch.int8)
+    w = torch.randint(-127, 128, (O, C, k, k), generator=g).to(torch.int8)
+    got = int8_conv(x.to(cuda), w.to(cuda), s).cpu()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, int8_conv(x, w, s))

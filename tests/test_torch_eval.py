@@ -299,11 +299,12 @@ def test_cli_builds_eval_and_test_configs(tmp_path):
     )
     assert (config.phase, config.beam_size, config.shard_cache) == ("eval", 2, "off")
     assert (config.batch_size, config.max_eval_ann_num) == (20, 96)
-    assert opts == {"model_file": None, "load": False, "load_cnn": False, "sweep": True,
-                    "repair_shards": False}
-    _, opts = cli.build_config(["--phase", "test", "--model_file", "5.npz", "--load", "--load_cnn"])
-    assert opts == {"model_file": "5.npz", "load": True, "load_cnn": True, "sweep": False,
-                    "repair_shards": False}
+    assert opts == {"model_file": None, "load": False, "load_cnn": False,
+                    "cnn_model_file": "./vgg16_no_fc.npy", "sweep": True, "repair_shards": False}
+    _, opts = cli.build_config(["--phase", "test", "--model_file", "5.npz", "--load", "--load_cnn",
+                                "--cnn_model_file", "r.npy"])
+    assert opts == {"model_file": "5.npz", "load": True, "load_cnn": True,
+                    "cnn_model_file": "r.npy", "sweep": False, "repair_shards": False}
     path = str(tmp_path / "eval.json")
     config.replace(beam_size=4).save(path)
     config, opts = cli.build_config(["--config", path, "--sweep"])
@@ -323,21 +324,23 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
     calls = []
     scores = {k: 0.25 for k in METRICS}
     monkeypatch.setattr(retry, "_defaults", dict(retry._defaults))
-    monkeypatch.setattr(runtime, "setup_state", lambda c, load, model_file, load_cnn: calls.append(
-        ("setup", c.phase, load, model_file, load_cnn)) or "state")
+    monkeypatch.setattr(runtime, "setup_state", lambda c, load, model_file: calls.append(
+        ("setup", c.phase, load, model_file)) or "state")
     monkeypatch.setattr(runtime, "evaluate", lambda c, state: calls.append(("eval", state)) or scores)
     monkeypatch.setattr(runtime, "test", lambda c, state: calls.append(("test", state)) or [])
     monkeypatch.setattr(runtime, "evaluate_sweep", lambda c: calls.append(("sweep",)) or {
         7: scores, 3: dict(scores, Bleu_4=0.5)})
 
     assert cli.main(["--phase", "eval", "--model_file", "5.npz", "--set", "io_retries=5"]) == 0
-    assert calls == [("setup", "eval", True, "5.npz", False), ("eval", "state")]
+    assert calls == [("setup", "eval", True, "5.npz"), ("eval", "state")]
     assert retry._defaults["retries"] == 5
     assert capsys.readouterr().out.splitlines() == [f"{k}: 0.2500" for k in METRICS]
 
     calls.clear()
-    assert cli.main(["--phase", "test", "--load_cnn"]) == 0
-    assert calls == [("setup", "test", True, None, True), ("test", "state")]
+    # the JAX CLI imports a pretrained CNN only in --phase train: eval and
+    # test ignore --load_cnn and its (missing) --cnn_model_file
+    assert cli.main(["--phase", "test", "--load_cnn", "--cnn_model_file", "missing.npy"]) == 0
+    assert calls == [("setup", "test", True, None), ("test", "state")]
 
     calls.clear()
     assert cli.main(["--phase", "eval", "--sweep"]) == 0
@@ -357,8 +360,6 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
         {"telemetry": True},
         {"blackbox": True},
         {"profile_dir": "prof"},
-        {"cnn": "resnet50"},
-        {"encoder_quant": "int8"},
     ],
     ids=lambda k: next(iter(k)),
 )
@@ -369,18 +370,6 @@ def test_unported_eval_knobs_raise(knob, tmp_path):
     for entry in (runtime.evaluate, runtime.test, runtime.evaluate_sweep):
         with pytest.raises(NotImplementedError, match="not ported"):
             entry(tc, device="cpu")
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [{"model_file": "ref.npy"}, {"load": True, "load_cnn": True}],
-    ids=["npy", "load_cnn"],
-)
-def test_unported_state_setups_raise(kwargs, tmp_path):
-    _, tc = configs(save_dir=str(tmp_path))
-    for setup in (runtime.setup_state, runtime.setup_train_state):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            setup(tc, device="cpu", **kwargs)
 
 
 def test_setup_state_without_a_checkpoint_draws_random_weights(tmp_path):

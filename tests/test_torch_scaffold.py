@@ -95,9 +95,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     "knob",
     [
         {"serve_wedge_timeout_ms": 250.0},  # the watchdog is not ported: never ignored
-        {"encoder_quant": "int8"},
         {"encode_cache": "on"},
-        {"cnn": "resnet50"},
     ],
 )
 def test_unported_serve_knobs_raise(knob):
@@ -106,6 +104,24 @@ def test_unported_serve_knobs_raise(knob):
     _, tc = configs(**knob)
     with pytest.raises(NotImplementedError, match="not ported"):
         check_ported(tc)
+
+
+@pytest.mark.parametrize(
+    "knob",
+    [{"cnn": "resnet50"}, {"encoder_quant": "int8"}, {"encoder_quant": "bf16"}],
+    ids=lambda k: next(iter(k.values())),
+)
+def test_encoder_knobs_pass_every_phase_check(knob):
+    """ResNet50 and the quantized encoder run in every ported phase: no
+    serve, eval/test or train check refuses them (train, eval and test
+    encode in full precision, as the JAX package does)."""
+    from sat_tpu_torch import runtime
+    from sat_tpu_torch.serve.engine import check_ported
+
+    _, tc = configs(**knob)
+    check_ported(tc)
+    runtime.check_ported(tc)
+    runtime.check_train_ported(tc)
 
 
 def test_fused_attend_has_no_kernel_for_other_devices():

@@ -270,7 +270,10 @@ def test_cli_train_needs_a_card_unless_patched_to_the_cpu(coco_fixture, tmp_path
     assert cli.build_config(["--config", path, "--train_cnn"])[0].train_cnn
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["--config", path, "--supervise"])
-    with pytest.raises(NotImplementedError, match="load_cnn"):
+    # --load_cnn imports the pretrained CNN of --cnn_model_file (default
+    # ./vgg16_no_fc.npy, absent here): the missing file's error, as in JAX
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="vgg16_no_fc.npy"):
         cli.main(["--config", path, "--load_cnn"])
 
 
@@ -286,8 +289,6 @@ def test_cli_train_needs_a_card_unless_patched_to_the_cpu(coco_fixture, tmp_path
         {"blackbox": True},
         {"profile_dir": "/nonexistent/profile"},
         {"fleet_telemetry": True},
-        {"cnn": "resnet50"},
-        {"encoder_quant": "int8"},
     ],
     ids=lambda k: next(iter(k)),
 )

@@ -49,6 +49,24 @@ Phases, each fatal on failure:
    after).  Then 16 images encoded once go
    through the pool and the monolithic search: bitwise the same words
    and scores.  Last, one full-pool K=8 window under torch.profiler.
+8a. serve ops — the operations layer: the flagship checkpoint through
+   ``python -m sat_tpu_torch.cli --phase serve`` in a fresh process, in
+   batch and then continuous mode, with the wedge watchdog (3 s), a 1 s
+   heartbeat, ``--trace_export``, ``--blackbox`` and an error-ratio SLO,
+   and ``SAT_FI_WEDGE_SERVE_BATCH`` wedging one batch (window): 200s
+   with ``X-Request-Id`` echoed and minted, a fast 500 "wedged",
+   ``/healthz`` 503 "degraded" then "ok" after the re-warm, the same
+   words as before; a ``/profile`` capture while 32 requests flow
+   holding the kernel's events (a second POST 409, a bad duration 400);
+   ``/stats`` percentiles, ``/metrics`` parsing with ``sat_up 1``, the
+   metering identity (attributed device-ms within 5% of the busy
+   spans); SIGTERM: exit 0, "serve drained cleanly", ``access.jsonl``
+   one record a request with the five phases, the final heartbeat,
+   ``trace.json`` one lane a request, no postmortem bundle.  Then
+   in-process on the slice's engine: a ``torch.cuda._sleep`` of twice the
+   wedge timeout ahead of one batch (the watchdog fires while
+   ``/healthz`` answers), and the slice traffic with the telemetry
+   registry off and on, in turns (both p50s, the terminal funnel's time).
 9. eval — the flagship model on a COCO-format fixture written from a
    seed (48 JPEGs, two captions each from a fixed list; batch 20 and
    ``max_eval_ann_num=96``, so 5 batches, the last with 4 rows of
@@ -613,7 +631,7 @@ def flagship_config(tmp: str):
 
     return Config(
         phase="serve", save_dir=os.path.join(tmp, "models"),
-        vocabulary_file=os.path.join(tmp, "vocabulary.csv"),
+        vocabulary_file=os.path.join(tmp, "vocabulary.csv"), summary_dir=os.path.join(tmp, "summary"),
     )
 
 
@@ -714,11 +732,15 @@ def get_stats(port: int) -> dict:
 
 
 def slice_phase(np, fa, config, card: str, device=None, where: str = "slice"):
+    """Serves with the telemetry registry on, as ``serve()`` does: /stats
+    reads its counters."""
+    from sat_tpu_torch import telemetry
     from sat_tpu_torch.data.vocabulary import Vocabulary
     from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
     from sat_tpu_torch.serve.server import CaptionServer
 
     write_vocabulary(np, config.vocabulary_file, config.vocabulary_size)
+    telemetry.enable()
     t0 = time.perf_counter()
     path = write_checkpoint(np, config, config.save_dir, step=1000, seed=SEED)
     print(f"{where} checkpoint {os.path.basename(path)}: {os.path.getsize(path) / 2**20:.0f} MiB "
@@ -738,10 +760,10 @@ def slice_phase(np, fa, config, card: str, device=None, where: str = "slice"):
         stats = get_stats(server.port)
     finally:
         server.shutdown()
+        telemetry.disable()
     check_replies(np, config, shapes, where)
     alone, trio = shapes["alone"], shapes["trio"]
-    counters = stats["counters"]
-    buckets = {k: v for k, v in counters.items() if k.startswith("bucket_")}
+    buckets = {f"bucket_{k}": v for k, v in stats["bucket_histogram"].items()}
     if not (buckets.get("bucket_1", 0) >= 1 and buckets.get("bucket_4", 0) >= 1):
         fail(f"{where}: buckets 1 and 4 must both dispatch, got {buckets}")
     if launches == 0:
@@ -810,10 +832,12 @@ def continuous_phase(torch, np, fa, config, card: str, bodies, batch_first, wher
     bf16 rounding move a log-prob by a few 1e-4 of itself, and random
     weights leave near-tied beams that then swap.  The pool against the
     monolithic search over the same 48 rows stays bitwise."""
+    from sat_tpu_torch import telemetry
     from sat_tpu_torch.data.vocabulary import Vocabulary
     from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
     from sat_tpu_torch.serve.server import CaptionServer
 
+    telemetry.enable()  # as serve() does: /stats reads its counters
     state, _ = load_serving_state(config)
     engine = ServeEngine(config, state, Vocabulary(config.vocabulary_size, config.vocabulary_file))
     server = CaptionServer(config, engine, port=0, host="127.0.0.1")
@@ -826,6 +850,7 @@ def continuous_phase(torch, np, fa, config, card: str, bodies, batch_first, wher
         stats = get_stats(server.port)
     finally:
         server.shutdown()
+        telemetry.disable()
     check_replies(np, config, shapes, where)
     block = stats["slot_pool"]
     per_k = block["dispatches_per_k"]
@@ -913,6 +938,383 @@ def profile_phase(torch, engine, bodies, where: str = "profile"):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"{where} kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:90]}",
               flush=True)
+
+
+# -- serve ops phase -----------------------------------------------------------
+
+def http(port: int, method: str, path: str, body: bytes = None, headers=None, timeout: float = 300.0):
+    """(status, headers, raw body) of one request to the local server."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def caption(port: int, body: bytes, rid: str = None):
+    """(status, reply, X-Request-Id echoed, ms) of one POST /caption."""
+    headers = {"Content-Type": "image/jpeg"}
+    if rid is not None:
+        headers["X-Request-Id"] = rid
+    t0 = time.perf_counter()
+    status, hdrs, raw = http(port, "POST", "/caption", body, headers)
+    return status, json.loads(raw or b"{}"), hdrs.get("X-Request-Id"), (time.perf_counter() - t0) * 1e3
+
+
+def healthz(port: int):
+    status, _, raw = http(port, "GET", "/healthz", timeout=30)
+    return status, json.loads(raw)
+
+
+def wait_healthy(port: int, where: str, limit_s: float = 120.0) -> float:
+    """Polls /healthz until 200 "ok"; returns the seconds it took."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        status, payload = healthz(port)
+        if status == 200 and payload["status"] == "ok":
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    fail(f"{where}: /healthz not back to ok within {limit_s:.0f}s: {payload}")
+
+
+def parse_metrics(text: str, where: str) -> dict:
+    """{'family{labels}': value} of a Prometheus text body; fails on a
+    line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, _, value = line.rpartition(" ")
+        try:
+            out[key] = float(value)
+        except ValueError:
+            fail(f"{where}: /metrics line does not parse: {line!r}")
+    return out
+
+
+def trace_kernels(path: str):
+    """Device kernel events of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        doc = json.load(f)
+    return [e for e in doc.get("traceEvents", []) if e.get("cat") in ("kernel", "Kernel")]
+
+
+def serve_ops_process(np, config, card: str, mode: str, tmp: str, bodies, wedge_at: int):
+    """The port's serve through ``python -m sat_tpu_torch.cli --phase
+    serve`` in a fresh process with the whole operations layer on and a
+    batch (batch mode) or decode window (continuous mode) wedged by
+    ``SAT_FI_WEDGE_SERVE_BATCH``; returns its launch tally."""
+    where = f"serve ops {mode}"
+    root = os.path.join(tmp, f"serve_ops_{mode}")
+    tdir = os.path.join(root, "telemetry")
+    os.makedirs(root)
+    cfg_path = os.path.join(root, "config.json")
+    config.replace(serve_mode=mode, telemetry_dir=tdir).save(cfg_path)
+    trace_path = os.path.join(root, "trace.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = ["--config", cfg_path, "--phase", "serve", "--port", "0", "--heartbeat_interval", "1",
+            "--trace_export", trace_path, "--blackbox", "--set", "serve_wedge_timeout_ms=3000",
+            "--set", "slo_error_ratio=0.5"]
+    out_f, err_f = open(os.path.join(root, "stdout"), "w+"), open(os.path.join(root, "stderr"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", CLI_HARNESS, *args], cwd=here, stdout=out_f,
+                            stderr=err_f, env={**os.environ, "SAT_FI_WEDGE_SERVE_BATCH": str(wedge_at)})
+
+    def tail():
+        err_f.flush()
+        err_f.seek(0)
+        return err_f.read()[-3000:]
+
+    try:
+        t0 = time.perf_counter()
+        port = None
+        hb = os.path.join(tdir, "heartbeat.json")
+        while port is None:
+            if proc.poll() is not None:
+                fail(f"{where}: the server exited {proc.returncode} before it listened:\n{tail()}")
+            if time.perf_counter() - t0 > 300:
+                fail(f"{where}: no heartbeat.json with a port in 300s:\n{tail()}")
+            try:
+                with open(hb) as f:
+                    port = json.load(f).get("port")
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t0
+        if healthz(port)[0] != 200:
+            fail(f"{where}: /healthz not 200 after boot: {healthz(port)}")
+        # requests one at a time until one is wedged
+        replies, wedged = [], None
+        for i in range(4):
+            status, payload, rid, ms = caption(port, bodies[i], rid=f"smoke-{mode}-{i}" if i == 0 else None)
+            if status == 500:
+                wedged = (i, payload, rid, ms)
+                break
+            if status != 200:
+                fail(f"{where}: request {i} got {status}: {payload}")
+            want = f"smoke-{mode}-{i}" if i == 0 else payload["request_id"]
+            if rid != want or payload["request_id"] != rid or (i > 0 and len(rid) != 16):
+                fail(f"{where}: X-Request-Id {rid!r} not echoed/minted (reply id {payload['request_id']!r})")
+            replies.append(payload)
+        if wedged is None or not replies:
+            fail(f"{where}: expected 200s then a wedged 500, got {len(replies)} 200s, then "
+                 f"{wedged}:\n{tail()}")
+        i_w, payload, rid, wedge_ms = wedged
+        if "wedged" not in payload["error"] or rid is None or wedge_ms > 3000 + 10_000:
+            fail(f"{where}: the wedged reply is not a fast 500 'wedged': {payload} in {wedge_ms:.0f} ms")
+        # the hook flips health just after the 500s go out (as in sat_tpu)
+        t_poll, seen = time.perf_counter(), []
+        while time.perf_counter() - t_poll < 10 and not seen:
+            status, health = healthz(port)
+            if (status, health["status"]) == (503, "degraded"):
+                seen.append(time.perf_counter() - t_poll)
+        if not seen:
+            fail(f"{where}: /healthz never said 503 degraded after the wedge: {status} {health['status']}")
+        rewarm_s = wait_healthy(port, where)
+        status, again, _, _ = caption(port, bodies[0])
+        if status != 200 or again["captions"] != replies[0]["captions"]:
+            fail(f"{where}: after the re-warm image 0 captions differently:\n{replies[0]}\n{again}")
+        print(f"{where} on {card}: boot {boot_s:.1f}s; {len(replies)} request(s) 200 with X-Request-Id "
+              f"echoed and minted; request {i_w} wedged: 500 in {wedge_ms:.0f} ms ({payload['error']!r}); "
+              f"/healthz 503 degraded, then ok after a re-warm of {rewarm_s:.2f}s; image 0 after the "
+              f"re-warm: bitwise its first reply", flush=True)
+        # a capture started (the reply comes once the profiler runs), 32
+        # requests sent into it, a second capture refused meanwhile
+        status, _, raw = http(port, "POST", "/profile?duration_ms=500")
+        flow = {}
+        flow_thread = threading.Thread(target=lambda: flow.update(zip(("lead", "rest"), post_all(
+            port, bodies[4:35], lead=bodies[35]))))
+        flow_thread.start()
+        second, _, _ = http(port, "POST", "/profile?duration_ms=500")
+        bad, _, _ = http(port, "POST", "/profile?duration_ms=soon")
+        flow_thread.join(timeout=600)
+        if status != 200 or second != 409 or bad != 400:
+            fail(f"{where}: POST /profile gave {status}, then {second} (want 409), bad duration {bad} (want 400)")
+        for st, pl, _ in [flow["lead"]] + flow["rest"]:
+            if st != 200:
+                fail(f"{where}: a request of the flow got {st}: {pl}")
+        trace = os.path.join(json.loads(raw)["profile_dir"], "trace.json")
+        t_wait = time.perf_counter()
+        while time.perf_counter() - t_wait < 60:
+            try:
+                with open(trace) as f:
+                    json.load(f)
+                break
+            except (OSError, ValueError):  # not written, or still being written
+                time.sleep(0.2)
+        kernels = trace_kernels(trace)
+        # the kernel template's second parameter is MASKED: B1 false, B2 true
+        body_name = "true" if mode == "continuous" else "false"
+        ours = [e for e in kernels if "fused_attend_kernel<" in e["name"]]
+        if not kernels or not ours:
+            fail(f"{where}: the /profile capture holds {len(kernels)} kernel events, {len(ours)} of fused_attend")
+        names = sorted({e["name"][e["name"].index("fused_attend_kernel<"):].split(">")[0] + ">" for e in ours})
+        busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+        print(f"{where} profile capture (500 ms while 32 requests flowed): {len(kernels)} kernel events, "
+              f"{len(ours)} of fused_attend ({names}; MASKED={body_name} expected), device busy "
+              f"{busy:.1f} ms; a second POST 409, a bad duration 400", flush=True)
+        if not any(n.split(", ")[1] == body_name for n in names):
+            fail(f"{where}: the capture has no fused_attend_kernel<..., {body_name}, ...> events: {names}")
+        # artifacts and endpoints
+        stats = json.loads(http(port, "GET", "/stats")[2])
+        lat = stats["latency_ms"].get("serve/request")
+        if not lat or not all(k in lat for k in ("p50", "p95", "p99")):
+            fail(f"{where}: /stats has no serve/request percentiles: {stats['latency_ms']}")
+        if mode == "continuous" and stats["slot_pool"]["busy"] != 0:
+            fail(f"{where}: slots still busy after the flow: {stats['slot_pool']}")
+        metrics = parse_metrics(http(port, "GET", "/metrics")[2].decode(), where)
+        if metrics.get("sat_up") != 1.0:
+            fail(f"{where}: /metrics has no 'sat_up 1'")
+        busy_ms = sum(metrics.get(f'sat_span_seconds_sum{{span="{n}"}}', 0.0)
+                      for n in ("serve/encode", "serve/step", "serve/decode_window")) * 1e3
+        attributed = metrics.get('sat_counter_total{name="metering/default/device_ms"}', 0.0)
+        if not busy_ms > 0 or abs(attributed - busy_ms) > 0.05 * busy_ms:
+            fail(f"{where}: metering identity broken: attributed {attributed:.3f} ms vs measured busy "
+                 f"{busy_ms:.3f} ms")
+        n_requests = len(replies) + 2 + 32
+        print(f"{where}: /stats serve/request p50 {lat['p50']} ms p95 {lat['p95']} ms p99 {lat['p99']} ms "
+              f"over {lat['count']}; metering: attributed device {attributed:.1f} ms vs measured busy "
+              f"{busy_ms:.1f} ms ({(attributed - busy_ms) / busy_ms:+.2e} relative; tol 5%); /metrics "
+              f"{len(metrics)} samples, sat_up 1", flush=True)
+        phases = {k: stats["latency_ms"][k]["p50"] for k in stats["latency_ms"]}
+        print(f"{where}: span p50s (ms) {phases}", flush=True)
+        proc.send_signal(__import__("signal").SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail(f"{where}: SIGTERM did not end the server in 120s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out_f.flush()
+    out_f.seek(0)
+    stdout = out_f.read()
+    err = tail()
+    if rc != 0 or "serve drained cleanly" not in err:
+        fail(f"{where}: SIGTERM exit {rc}, 'serve drained cleanly' missing:\n{err}")
+    last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+    tally = json.loads(last[len("chip_smoke counts "):])
+    with open(os.path.join(tdir, "access.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if len(records) != n_requests or not all(
+            set(r["phases"]) == {f"{p}_ms" for p in ("queue_wait", "batch_form", "dispatch", "drain", "detok")}
+            for r in records):
+        fail(f"{where}: access.jsonl holds {len(records)} records for {n_requests} requests, or a record "
+             f"lacks a phase")
+    with open(os.path.join(tdir, "heartbeat.json")) as f:
+        beat = json.load(f)
+    if beat.get("serve", {}).get("ready") != 0 or beat["counters"].get("serve/completed") != n_requests - 1:
+        fail(f"{where}: heartbeat.json is not the final beat: serve {beat.get('serve')}, completed "
+             f"{beat['counters'].get('serve/completed')} (want {n_requests - 1})")
+    with open(trace_path) as f:
+        lanes = [e for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "request" and e["name"].startswith("request ")]
+    if len(lanes) != n_requests:
+        fail(f"{where}: trace.json has {len(lanes)} request lanes for {n_requests} requests")
+    bundles = [d for d in os.listdir(tdir) if d.startswith("postmortem_")]
+    if bundles:
+        fail(f"{where}: a postmortem bundle on a clean exit: {bundles}")
+    launches = tally["masked"] if mode == "continuous" else tally["launches"]
+    if launches == 0:
+        fail(f"{where}: the {'masked' if mode == 'continuous' else 'unmasked'} fused_attend never launched")
+    print(f"{where}: SIGTERM → exit 0, 'serve drained cleanly'; access.jsonl {len(records)} records with "
+          f"the five phases; final heartbeat (ready 0, {n_requests - 1} completed); trace.json "
+          f"{len(lanes)} request lanes; no postmortem bundle; fused_attend launches {tally['launches']}, "
+          f"masked {tally['masked']}", flush=True)
+    return tally
+
+
+def device_stall(torch, np, engine, config, card: str, bodies):
+    """A real stall in-process: the batch engine's device region enqueues
+    a spin of about twice the wedge timeout before its work.  The
+    watchdog must fire while the card is busy, /healthz must answer
+    during the stall, and the server must come back ok."""
+    from sat_tpu_torch.serve.server import CaptionServer
+
+    where = "serve ops device stall"
+    wedge_ms = 3000.0
+    cycles = int(2 * wedge_ms / 1e3 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
+    encode_batch = engine.encode_batch
+    armed = [True]
+
+    def stalled(images, costs=None):
+        if armed[0]:
+            armed[0] = False
+            torch.cuda._sleep(cycles)
+        return encode_batch(images, costs)
+
+    engine.encode_batch = stalled
+    server = CaptionServer(config.replace(serve_wedge_timeout_ms=wedge_ms, heartbeat_interval=0.0,
+                                          telemetry_dir=os.path.join(os.path.dirname(config.save_dir),
+                                                                     "stall_telemetry")),
+                           engine, port=0, host="127.0.0.1")
+    try:
+        server.start()
+        box = {}
+        t0 = time.perf_counter()
+        th = threading.Thread(target=lambda: box.update(reply=caption(server.port, bodies[0])))
+        th.start()
+        answered = []
+        while th.is_alive():
+            t = time.perf_counter()
+            status, payload = healthz(server.port)
+            answered.append(((t - t0) * 1e3, (time.perf_counter() - t) * 1e3, status, payload["status"]))
+            time.sleep(0.25)
+        status, payload, _, ms = box["reply"]
+        if status != 500 or "wedged" not in payload.get("error", ""):
+            fail(f"{where}: the stalled batch got {status}: {payload}")
+        during = [a for a in answered if a[0] < wedge_ms]
+        if not during or max(a[1] for a in answered) > 1000:
+            fail(f"{where}: /healthz did not answer promptly during the stall: {answered}")
+        if not any(a[2:] == (503, "degraded") for a in answered) and healthz(server.port)[0] != 503:
+            fail(f"{where}: /healthz never said 503 degraded: {answered}")
+        rewarm_s = wait_healthy(server.port, where)
+        status, payload, _, _ = caption(server.port, bodies[0])
+        if status != 200:
+            fail(f"{where}: after the re-warm a request got {status}: {payload}")
+    finally:
+        server.shutdown()
+        engine.encode_batch = encode_batch
+    print(f"{where} on {card}: a {cycles / 1e9:.1f}e9-cycle spin ahead of the batch; the watchdog "
+          f"failed it with 500 after {ms:.0f} ms (timeout {wedge_ms:.0f} ms); /healthz answered "
+          f"{len(answered)} polls during the stall (slowest {max(a[1] for a in answered):.1f} ms, "
+          f"{len(during)} before the timeout); ok again after {rewarm_s:.2f}s; then a request 200",
+          flush=True)
+
+
+def layer_overhead(torch, np, engine, config, card: str, bodies):
+    """The same traffic (3 alone, 3 and 31 behind a lead) in turns with
+    the telemetry registry off and with it on and the whole operations
+    layer (tracer, metering, capacity, an SLO, heartbeat, trace export),
+    twice each; the p50s and the layer's host time a request."""
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.serve.server import CaptionServer
+
+    where = "serve ops overhead"
+    runs = {"off": [], "on": []}
+    funnel_ns = []
+    finish = CaptionServer._finish_request
+
+    def timed_finish(self, *a, **k):
+        t = time.perf_counter_ns()
+        try:
+            return finish(self, *a, **k)
+        finally:
+            funnel_ns.append(time.perf_counter_ns() - t)
+
+    root = os.path.join(os.path.dirname(config.save_dir), "overhead")
+    CaptionServer._finish_request = timed_finish
+    try:
+        for turn, state in enumerate(("off", "on", "off", "on")):
+            if state == "on":
+                telemetry.enable()
+                cfg = config.replace(heartbeat_interval=1.0, slo_serve_p99_ms=1000.0, slo_error_ratio=0.5,
+                                     trace_export=os.path.join(root, f"trace{turn}.json"),
+                                     telemetry_dir=os.path.join(root, f"on{turn}"))
+            else:
+                telemetry.disable()
+                cfg = config.replace(telemetry_dir=os.path.join(root, f"off{turn}"))
+            engine._tel = telemetry.get()
+            server = CaptionServer(cfg, engine, port=0, host="127.0.0.1")
+            try:
+                server.start()
+                del funnel_ns[:]
+                shapes, _, _ = send_traffic(server.port, bodies)
+                # send_traffic sends its 3 lone requests first, one at a time
+                runs[state].append((shapes, funnel_ns[:3]))
+            finally:
+                server.shutdown()
+    finally:
+        CaptionServer._finish_request = finish
+        telemetry.disable()
+        engine._tel = telemetry.get()
+    for state in ("off", "on"):
+        for shapes, _ in runs[state]:
+            check_replies(np, config, shapes, where)
+    p50 = {s: {k: statistics.median(r[2] for shapes, _ in runs[s] for r in shapes[k]) for k in ("alone", "burst")}
+           for s in runs}
+    funnel_us = {s: statistics.median(f for _, fs in runs[s] for f in fs) / 1e3 for s in runs}
+    print(f"{where} on {card} (2 turns each, in turns): p50 alone off {p50['off']['alone']:.2f} ms, on "
+          f"{p50['on']['alone']:.2f} ms ({p50['on']['alone'] / p50['off']['alone'] - 1:+.1%}); p50 of 31 "
+          f"behind a lead off {p50['off']['burst']:.2f} ms, on {p50['on']['burst']:.2f} ms "
+          f"({p50['on']['burst'] / p50['off']['burst'] - 1:+.1%}); a lone request's terminal funnel (access "
+          f"log; on: + ledger, capacity) off {funnel_us['off']:.1f} us, on {funnel_us['on']:.1f} us: "
+          f"{funnel_us['on'] / 1e3 / p50['on']['alone']:.3%} of its p50", flush=True)
+
+
+def serve_ops_phase(torch, np, engine, config, card: str, bodies):
+    """The operations layer: both modes through the CLI in fresh
+    processes, then a real device stall and the layer's overhead
+    in-process on the slice's engine.  Returns (B1 launches, B2
+    launches) of the two processes."""
+    tmp = os.path.dirname(config.save_dir)
+    batch = serve_ops_process(np, config, card, "batch", tmp, bodies, wedge_at=3)
+    cont = serve_ops_process(np, config, card, "continuous", tmp, bodies, wedge_at=4)
+    device_stall(torch, np, engine, config, card, bodies)
+    layer_overhead(torch, np, engine, config, card, bodies)
+    return batch["launches"] + cont["launches"], batch["masked"] + cont["masked"]
 
 
 # -- eval and test phases ------------------------------------------------------
@@ -2200,13 +2602,16 @@ def main() -> int:
         phase("slice", t0)
         t0 = time.perf_counter()
         profile_phase(torch, engine, bodies)
-        del engine
         phase("profile", t0)
         t0 = time.perf_counter()
         masked_launches = continuous_phase(
             torch, np, fa, config.replace(serve_mode="continuous"), card, bodies, batch_first
         )
         phase("continuous", t0)
+        t0 = time.perf_counter()
+        ops_launches, ops_masked = serve_ops_phase(torch, np, engine, config, card, bodies)
+        del engine
+        phase("serve ops", t0)
         t0 = time.perf_counter()
         config = eval_config(tmp)
         eval_launches = eval_phase(np, config, card)
@@ -2265,9 +2670,10 @@ def main() -> int:
         print(f"kernel fused_attend bf16 B={B} N={N} D={row['D']} ({what}) on {card}: {row['ms'] * 1e3:.1f} us, "
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
-    vgg_b1 = launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
+    vgg_b1 = launches + ops_launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
     r50_b1 = r50_launches + r50_eval + import_launches
-    print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, eval and sweep "
+    print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
+          f"{ops_launches} (masked {ops_masked}), eval and sweep "
           f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
           f"step {eval_loss_launches}; ResNet50 batch serve {r50_launches}, eval {r50_eval}, test of the "
           f"imported npy {import_launches}; train steps 0; masked: VGG16 continuous serve "
@@ -2300,7 +2706,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
-        "launches": masked_launches + bulk_launches + r50_masked + r50_bulk,
+        "launches": masked_launches + ops_masked + bulk_launches + r50_masked + r50_bulk,
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],

@@ -33,8 +33,9 @@ process picks the same cuDNN algorithms for the same shapes.
 
 Handled differently from the JAX package: the port compiles nothing, so
 there is no compile listener and no ``bulk/steady_compiles`` gauge;
-``--blackbox`` and ``serve_quality="on"`` are refused by
-``serve.engine.check_ported``; ``--supervise`` is refused by the CLI.
+``serve_quality="on"`` is refused by ``serve.engine.check_ported`` and
+``--blackbox`` here (the flight recorder is wired into serve alone so
+far); ``--supervise`` is refused by the CLI.
 """
 
 from __future__ import annotations
@@ -204,6 +205,8 @@ def run_bulk(config: Config, model_file: Optional[str] = None, device=None) -> i
     if not config.bulk_output:
         raise ValueError("--bulk_output is required for --phase bulk")
     check_ported(config)
+    if config.blackbox:
+        raise NotImplementedError("blackbox=True is not ported to sat_tpu_torch's bulk phase yet (serve only)")
     dev = resolve_device(device)
     files = resolve_corpus(config.bulk_input)
     shards = plan_shards(files, config.bulk_shard_rows)

@@ -163,6 +163,39 @@ def build_config(argv: Optional[List[str]] = None):
              "encode in full precision",
     )
     p.add_argument(
+        "--telemetry", action="store_true",
+        help="host-side span tracing (serve always turns it on; train, eval "
+             "and test do not take it yet)",
+    )
+    p.add_argument(
+        "--heartbeat_interval", type=float, default=None, metavar="SEC",
+        help="seconds between heartbeat.json rewrites (default 10; 0 "
+             "disables the heartbeat thread)",
+    )
+    p.add_argument(
+        "--trace_export", default=None, metavar="PATH",
+        help="serve: Chrome trace-event JSON written at shutdown, one lane "
+             "a retained request; load in Perfetto or chrome://tracing",
+    )
+    p.add_argument(
+        "--blackbox", action="store_true",
+        help="serve: black-box flight recorder (a bounded on-disk event ring "
+             "under <telemetry_dir>/blackbox and a postmortem_<run_id>/ "
+             "bundle on an uncaught exception); implies --telemetry",
+    )
+    p.add_argument(
+        "--serve_metering", choices=("on", "off"), default=None,
+        help="serve: per-request cost attribution, the metering.jsonl ledger "
+             "and the online capacity model (only with telemetry on, as "
+             "serve always has it; default on)",
+    )
+    p.add_argument(
+        "--slo_capacity_headroom_pct", type=float, default=None, metavar="PCT",
+        help="serve: capacity_headroom SLO objective, burning when the "
+             "capacity model's headroom gauge falls below PCT (0 disables; "
+             "default 0)",
+    )
+    p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="override any Config field, repeatable",
     )
@@ -209,6 +242,19 @@ def build_config(argv: Optional[List[str]] = None):
         config = config.replace(serve_max_wait_ms=args.max_wait_ms)
     if args.serve_mode is not None:
         config = config.replace(serve_mode=args.serve_mode)
+    if args.telemetry:
+        config = config.replace(telemetry=True)
+    if args.blackbox:
+        # the recorder rides the span recorder, so it implies the base layer
+        config = config.replace(blackbox=True, telemetry=True)
+    if args.heartbeat_interval is not None:
+        config = config.replace(heartbeat_interval=args.heartbeat_interval)
+    if args.trace_export is not None:
+        config = config.replace(trace_export=args.trace_export)
+    if args.serve_metering is not None:
+        config = config.replace(serve_metering=args.serve_metering == "on")
+    if args.slo_capacity_headroom_pct is not None:
+        config = config.replace(slo_capacity_headroom_pct=args.slo_capacity_headroom_pct)
     if args.serve_decode_depth is not None:
         config = config.replace(serve_decode_depth=tuple(
             int(k) for k in args.serve_decode_depth.split(",") if k

@@ -18,9 +18,13 @@ encoder: the float32 CNN and ResNet50's running statistics (folded into
 the conv biases) leave its params.  Batch dispatches and the slot pool's
 encode lanes all encode through :meth:`ServeEngine.encode_images`.
 
-The encode cache, canary/resident param slots, the wedge watchdog and
-the serve loop's spans are later slices of the port; their knobs raise
-here.
+With the telemetry registry on, ``encode_batch`` waits the encode out
+and records ``serve/encode`` (charging each request's ``RequestCost`` an
+equal share), ``preprocess`` records ``serve/preprocess`` and
+``drain_output`` the search's decode-step count; warmups record nothing,
+so every busy span is a request's.  The encode cache, the tier handoff,
+tenants and canary/resident param slots are later slices of the port;
+their knobs raise here.
 """
 
 from __future__ import annotations
@@ -67,9 +71,6 @@ def check_ported(config: Config) -> None:
         "serve_tier": (config.serve_tier, "both"),
         "tenants": (config.tenants, ""),
         "model_reload": (config.model_reload, 0.0),
-        "serve_wedge_timeout_ms": (config.serve_wedge_timeout_ms, 0.0),
-        "blackbox": (config.blackbox, False),
-        "trace_export": (config.trace_export, ""),
     }
     for name, (value, ported) in unported.items():
         if value != ported:
@@ -139,6 +140,7 @@ class ServeEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.quantize_seconds = time.perf_counter() - t0
+            self._tel.gauge("serve/encoder_quantize_seconds", round(self.quantize_seconds, 3))
             print(
                 f"sat_tpu_torch: serve encoder quantized ({config.encoder_quant}, {config.cnn}) "
                 f"in {self.quantize_seconds:.2f}s",
@@ -154,15 +156,20 @@ class ServeEngine:
 
     # -- startup -----------------------------------------------------------
 
+    @torch.inference_mode()
     def warmup(self) -> None:
         """Run encode + beam search once per bucket on zeros: builds the
-        CUDA kernel and settles cuDNN before the first request."""
+        CUDA kernel and settles cuDNN before the first request.  Batch
+        mode's re-warm after a wedge, too: it returns once the card has
+        answered every bucket.  Records no span (no request's work)."""
         size = self.config.image_size
         t0 = time.perf_counter()
         for b in self.buckets:
-            out = self.dispatch(np.zeros((b, size, size, 3), self._image_dtype))
-            self.drain_output(out, b)
+            out = self.search(self.encode_images(np.zeros((b, size, size, 3), self._image_dtype)))
+            out.words.cpu()
         self.warm_seconds = time.perf_counter() - t0
+        self._tel.gauge("serve/warm_buckets", len(self.buckets))
+        self._tel.gauge("serve/warm_seconds", round(self.warm_seconds, 3))
         print(
             f"sat_tpu_torch: serve warmup — buckets {self.buckets} on "
             f"{self.device} in {self.warm_seconds:.1f}s",
@@ -194,7 +201,8 @@ class ServeEngine:
     def preprocess(self, data: bytes) -> np.ndarray:
         """POSTed image bytes → one model input row; ValueError on bytes
         that do not decode (the frontend's 400)."""
-        return self.loader.load_bytes(data)
+        with self._tel.span("serve/preprocess"):
+            return self.loader.load_bytes(data)
 
     @property
     def decoder_params(self) -> Dict[str, Any]:
@@ -206,21 +214,57 @@ class ServeEngine:
         x = torch.from_numpy(images).to(self.device, non_blocking=True)
         return encode(self._params, self.config, x)
 
+    def encode_batch(self, images: np.ndarray, costs=None) -> torch.Tensor:
+        """``encode_images`` on a padded batch; with telemetry on, waits
+        the encode out, records ``serve/encode`` and
+        ``serve/encode_lane<bucket>`` and charges each live request's
+        ``RequestCost`` in ``costs`` an equal share (pad rows bill
+        nobody)."""
+        t0 = time.perf_counter_ns()
+        contexts = self.encode_images(images)
+        if self._tel.enabled:
+            if contexts.is_cuda:
+                torch.cuda.synchronize(contexts.device)
+            dur = time.perf_counter_ns() - t0
+            self._tel.record("serve/encode", t0, dur)
+            self._tel.record(f"serve/encode_lane{images.shape[0]}", t0, dur)
+            if costs:
+                share = dur // len(costs)
+                for cost in costs:
+                    if cost is not None:
+                        cost.add_encode(share)
+                self._tel.count("serve/encode_images", len(costs))
+                self._tel.count("serve/encode_lane_slots", images.shape[0])
+        return contexts
+
     @torch.inference_mode()
-    def dispatch(self, images: np.ndarray) -> BeamResult:
-        """Padded batch [bucket, S, S, 3] → BeamResult of device tensors."""
+    def search(self, contexts: torch.Tensor) -> BeamResult:
+        """Contexts [bucket, N, D] → BeamResult of device tensors (with
+        the decode steps run)."""
         return beam_search(
-            self.decoder_params, self.config, self.encode_images(images), self.eos_id,
+            self.decoder_params, self.config, contexts, self.eos_id,
             valid_size=len(self.vocabulary.words), return_steps=True,
         )
 
+    def dispatch(self, images: np.ndarray) -> BeamResult:
+        """Padded batch [bucket, S, S, 3] → BeamResult of device tensors."""
+        return self.search(self.encode_batch(images))
+
     def drain_output(self, out: BeamResult, n: int) -> Tuple[np.ndarray, ...]:
-        """Host arrays (words, lengths, log_scores) of the ``n`` live rows."""
-        return (
+        """Host arrays (words, lengths, log_scores) of the ``n`` live rows.
+        The search's decode-step count goes to ``serve/decode_steps`` and
+        ``serve/steps_per_dispatch`` (raw counts, not ns): the monolithic
+        search is one dispatch of that many steps."""
+        arrays = (
             out.words[:n].cpu().numpy(),
             out.lengths[:n].cpu().numpy(),
             out.log_scores[:n].cpu().numpy(),
         )
+        if out.steps_run is not None:
+            steps = int(out.steps_run)
+            self._tel.record("serve/decode_steps", 0, steps)
+            self._tel.record("serve/steps_per_dispatch", 0, steps)
+        return arrays
 
     def detok_rows(self, arrays: Tuple[np.ndarray, ...], n: int) -> List[Dict[str, Any]]:
         """Detokenize every beam of ``n`` drained rows."""

@@ -16,9 +16,16 @@ pools are later slices of the port; their knobs raise in
 ``engine.check_ported``.
 
 With the telemetry registry enabled (``tel``, the engine's by default)
-each lane encode waits for the device and records ``serve/encode`` and
-``serve/encode_lane<k>``; with it off, admission stays fully
-asynchronous.
+each lane encode waits for the device, records ``serve/encode`` and
+``serve/encode_lane<k>`` and charges each admitted payload carrying a
+``cost`` (a serve request's ``RequestCost``) an equal share of it; with
+it off, admission stays fully asynchronous.  The pool keeps the JAX
+pool's gauges (``serve/slot_occupancy``, ``serve/slot_pool_slots``,
+``serve/slot_pool_pages``, ``serve/pool_warm_seconds``).
+
+``reset`` (startup, and recovery after a wedged window) starts a new
+carry generation: a window still running on a helper thread the
+watchdog gave up on cannot write its stale carry over the fresh one.
 
 The pool owns device state and host bookkeeping (free slots, slot →
 payload binding) only; when to admit and step is the
@@ -80,6 +87,7 @@ class PagedSlotPool:
         self._payload = {}
         self._mask = np.zeros((self.slots,), np.bool_)
         self._carry = None
+        self._generation = 0
         self.warm_seconds = 0.0
 
     # -- startup -----------------------------------------------------------
@@ -108,6 +116,9 @@ class PagedSlotPool:
         harvest_slots(self._carry).words.cpu()  # the drain proves the device answers
         self.reset()
         self.warm_seconds = time.perf_counter() - t0
+        self._tel.gauge("serve/slot_pool_slots", self.slots)
+        self._tel.gauge("serve/slot_pool_pages", self.pages)
+        self._tel.gauge("serve/pool_warm_seconds", round(self.warm_seconds, 3))
         print(
             f"sat_tpu_torch: slot pool warmup — {self.pages}x{self.width} slots, "
             f"lanes {self.lane_widths}, decode depths {list(self.decode_depths)} on "
@@ -120,6 +131,7 @@ class PagedSlotPool:
     def reset(self) -> None:
         """A fresh empty carry and every slot free.  Bound payloads must
         have been failed by the caller first."""
+        self._generation += 1
         self._carry = init_slot_pool(
             self.config, self.slots, beam_size=self.beam_size, max_len=self.max_len,
             device=self.device,
@@ -127,6 +139,7 @@ class PagedSlotPool:
         self._free = set(range(self.slots))
         self._payload.clear()
         self._mask[:] = False
+        self._tel.gauge("serve/slot_occupancy", 0)
 
     # -- host bookkeeping --------------------------------------------------
 
@@ -165,6 +178,7 @@ class PagedSlotPool:
             images = np.zeros((lane, size, size, 3), self.engine._image_dtype)
             slot_src = np.zeros((self.slots,), np.int64)
             admit_mask = np.zeros((self.slots,), np.bool_)
+            payloads = []
             for j in range(chunk):
                 image, payload = items[admitted]
                 admitted += 1
@@ -175,17 +189,21 @@ class PagedSlotPool:
                 self._free.discard(s)
                 self._payload[s] = payload
                 self._mask[s] = True
+                payloads.append(payload)
             self._carry = init_slots(
                 self.engine.decoder_params, self.config, self._carry,
-                self._encode_lane(images), self._on_device(slot_src),
+                self._encode_lane(images, payloads), self._on_device(slot_src),
                 self._on_device(admit_mask), beam_size=self.beam_size,
             )
+        self._tel.gauge("serve/slot_occupancy", self.occupancy())
         return admitted
 
-    def _encode_lane(self, images: np.ndarray) -> torch.Tensor:
-        """Encode one lane; with telemetry on, wait the encode out and
-        record its window (the seed consumes the contexts at once, so off
-        it stays asynchronous)."""
+    def _encode_lane(self, images: np.ndarray, payloads: List[Any]) -> torch.Tensor:
+        """Encode one lane; with telemetry on, wait the encode out, record
+        its window and charge each payload's ``cost`` an equal share (the
+        seed consumes the contexts at once, so off it stays
+        asynchronous).  Padded lane rows bill nobody but feed the
+        lane-fill capacity gauge."""
         t0 = time.perf_counter_ns()
         contexts = self.engine.encode_images(images)
         if self._tel.enabled:
@@ -194,6 +212,13 @@ class PagedSlotPool:
             dur = time.perf_counter_ns() - t0
             self._tel.record("serve/encode", t0, dur)
             self._tel.record(f"serve/encode_lane{images.shape[0]}", t0, dur)
+            share = dur // len(payloads)
+            for payload in payloads:
+                cost = getattr(payload, "cost", None)
+                if cost is not None:
+                    cost.add_encode(share)
+            self._tel.count("serve/encode_images", len(payloads))
+            self._tel.count("serve/encode_lane_slots", images.shape[0])
         return contexts
 
     def step(self) -> torch.Tensor:
@@ -210,11 +235,14 @@ class PagedSlotPool:
         (``decode_depths``)."""
         if k not in self.decode_depths:
             raise KeyError(f"decode depth {k} not in ladder {list(self.decode_depths)}")
-        self._carry, done, steps_run = decode_multi_step(
+        generation = self._generation
+        carry, done, steps_run = decode_multi_step(
             self.engine.decoder_params, self.config, self._carry,
             self._on_device(self._mask.copy()), self.eos_id, k=k,
             beam_size=self.beam_size, valid_size=self.valid_size,
         )
+        if generation == self._generation:  # else a reset() came in between
+            self._carry = carry
         return done, steps_run
 
     @torch.inference_mode()
@@ -237,4 +265,5 @@ class PagedSlotPool:
             self._mask[s] = False
             self._free.add(s)
         self._carry = retire_slots(self._carry, self._on_device(retire))
+        self._tel.gauge("serve/slot_occupancy", self.occupancy())
         return payloads, words[ids], lengths[ids], scores[ids], steps[ids]

@@ -2,10 +2,15 @@
 port's copy of ``sat_tpu.telemetry``'s host half.
 
 Ring-buffered spans, counters and gauges (``spans``), the pollable
-``heartbeat.json`` writer (``heartbeat``), the busy-span accounting of
-``metering``, and the attention exporters (``exporters``).  The registry
-is off (the null object) until a caller enables it; ``--phase bulk``
-always does.  Only ``spans`` is imported eagerly.
+``heartbeat.json`` writer (``heartbeat``), and the serve plane's
+operations layer: request tracing (``tracectx``), the Prometheus render
+(``promtext``), cost attribution and the metering ledger (``metering``),
+the capacity model (``capacity``), SLOs (``slo``), the flight recorder
+(``blackbox``), live profiles on torch.profiler (``profwin``), and the
+Chrome-trace, JSONL and attention exporters (``exporters``).  The
+registry is off (the null object) until a caller enables it;
+``--phase serve`` and ``--phase bulk`` always do.  Only ``spans`` is
+imported eagerly.
 """
 
 from __future__ import annotations

@@ -1,12 +1,22 @@
-"""Attention introspection exporters — the port's copy of the attention
-half of ``sat_tpu.telemetry.exporters``.
+"""Telemetry exporters — the port's copy of ``sat_tpu.telemetry.exporters``
+less the step-time breakdown.
 
-``export_attention_jsonl`` writes one record a captioned image (per-word
-alpha grids, entropy and coverage statistics); ``render_attention_sheet``
-writes a self-contained HTML contact sheet of the same grids.  Both
-degrade to a warning on failure: artifact export never kills an eval.
-The sheet keeps the JAX package's title, so the two packages' sheets read
-alike.
+* :func:`export_chrome_trace` — trace-event JSON (``ph:"X"`` complete
+  events, microsecond timestamps) loadable in Perfetto /
+  ``chrome://tracing``, one track per recording thread; the serve
+  phase's request lanes ride in through ``extra_events``;
+* :func:`rotating_append` — the size-capped JSONL sink every serve log
+  (``access.jsonl``, ``metering.jsonl``, ``slo.jsonl``) writes through,
+  and :func:`append_jsonl` / :func:`snapshot_row` over it;
+* ``export_attention_jsonl`` writes one record a captioned image
+  (per-word alpha grids, entropy and coverage statistics);
+  ``render_attention_sheet`` writes a self-contained HTML contact sheet
+  of the same grids.  The sheet keeps the JAX package's title, so the two
+  packages' sheets read alike.
+
+Every writer degrades to a warning on failure: observability never kills
+a run.  Trace documents name the process ``sat_tpu host``, as the JAX
+package's do, so one reader merges both.
 """
 
 from __future__ import annotations
@@ -14,12 +24,189 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..utils.fileio import atomic_write
-from . import run_id
+from . import process_identity, run_id
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event JSON
+# ---------------------------------------------------------------------------
+
+
+def chrome_trace(
+    tel,
+    process_name: Optional[str] = None,
+    extra_events: Optional[List[Dict]] = None,
+    pid: Optional[int] = None,
+) -> Dict:
+    """The trace-event document for ``tel``'s retained span window.
+
+    Timestamps are microseconds since the recorder's anchor; the absolute
+    anchor (unix seconds) rides in ``otherData`` for post-hoc alignment
+    with ``metrics.jsonl``'s wall-clock stamps.  ``extra_events`` are
+    pre-built trace events appended verbatim — the request lanes from
+    ``tracectx.RequestTracer.trace_events`` ride in through here.
+
+    The trace ``pid`` defaults to the run's **process_index** (not the OS
+    pid): per-host traces from one multi-host run then occupy distinct,
+    stable lanes, and ``scripts/merge_traces.py`` can concatenate them
+    into one Perfetto timeline with a lane per host.  The OS pid still
+    rides in ``otherData``.
+    """
+    names, ids, t0s, durs, tids = tel.spans_snapshot()
+    process_index, process_count = process_identity()
+    if pid is None:
+        pid = process_index
+    if process_name is None:
+        process_name = (
+            f"sat_tpu host p{process_index}"
+            if process_count > 1
+            else "sat_tpu host"
+        )
+    events: List[Dict] = [
+        {
+            "name": "process_name",
+            "ph": "M",
+            "pid": pid,
+            "args": {"name": process_name},
+        }
+    ]
+    anchor = tel.anchor_ns
+    for k in range(len(ids)):
+        events.append(
+            {
+                "name": names[int(ids[k])],
+                "cat": "host",
+                "ph": "X",
+                "pid": pid,
+                "tid": int(tids[k]),
+                "ts": (int(t0s[k]) - anchor) / 1e3,
+                "dur": int(durs[k]) / 1e3,
+            }
+        )
+    if extra_events:
+        events.extend(extra_events)
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "run_id": run_id(),
+            "anchor_unix": tel.anchor_unix,
+            "os_pid": os.getpid(),
+            "process_index": process_index,
+            "process_count": process_count,
+            "counters": tel.counters(),
+            "gauges": tel.gauges(),
+        },
+    }
+
+
+def export_chrome_trace(
+    tel, path: str, extra_events: Optional[List[Dict]] = None
+) -> Optional[str]:
+    """Write the Perfetto-loadable trace JSON atomically; returns the path
+    (None when the write failed — reported, never raised)."""
+    try:
+        doc = chrome_trace(tel, extra_events=extra_events)
+        atomic_write(path, "w", lambda f: json.dump(doc, f))
+        return path
+    except (OSError, ValueError) as e:
+        print(
+            f"sat_tpu_torch: telemetry trace export failed ({path}): {e}",
+            file=sys.stderr,
+            flush=True,
+        )
+        return None
+
+
+# ---------------------------------------------------------------------------
+# periodic telemetry.jsonl
+# ---------------------------------------------------------------------------
+
+
+def snapshot_row(tel, step: Optional[int] = None) -> Dict:
+    """One JSON-able snapshot of the recorder: counters, gauges, and
+    per-span running (count, total ms, max ms) — same stamp fields as
+    ``metrics.jsonl`` rows so the two join on (run_id, step/time)."""
+    spans = {
+        name: {
+            "count": c,
+            "total_ms": round(total / 1e6, 3),
+            "max_ms": round(mx / 1e6, 3),
+        }
+        for name, (c, total, mx) in tel.aggregates().items()
+    }
+    row: Dict = {
+        "run_id": run_id(),
+        "wall_time": round(time.time(), 6),
+        "mono_ns": time.perf_counter_ns(),
+        "counters": tel.counters(),
+        "gauges": tel.gauges(),
+        "spans": spans,
+    }
+    if step is not None:
+        row["step"] = int(step)
+    return row
+
+
+def rotating_append(
+    path: str, line: str, cap_bytes: int = 0, tel=None
+) -> bool:
+    """Append one line to a size-capped JSONL file.
+
+    When the file would grow past ``cap_bytes`` the current file rolls to
+    ``<path>.1`` (single rollover — at most ``2 * cap_bytes`` on disk, the
+    previous ``.1`` is dropped) and the append lands in a fresh file.
+    ``cap_bytes <= 0`` disables rotation.  Failures degrade to a one-line
+    warning (and the ``telemetry/export_errors`` counter when ``tel`` is
+    given) — the shared sink for ``telemetry.jsonl`` / ``access.jsonl`` /
+    ``slo.jsonl``, so none of them can fill a disk or kill a run.
+    Returns True when the line landed."""
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        data = line if line.endswith("\n") else line + "\n"
+        if cap_bytes > 0:
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                size = 0
+            if size and size + len(data.encode("utf-8")) > cap_bytes:
+                os.replace(path, path + ".1")
+        with open(path, "a") as f:
+            f.write(data)
+        return True
+    except (OSError, ValueError) as e:
+        if tel is not None:
+            tel.count("telemetry/export_errors")
+        print(
+            f"sat_tpu_torch: telemetry append failed ({path}): {e}",
+            file=sys.stderr,
+            flush=True,
+        )
+        return False
+
+
+def append_jsonl(
+    tel, path: str, step: Optional[int] = None, cap_bytes: int = 0
+) -> None:
+    """Append one snapshot row through the rotating sink; failures degrade
+    to a one-line warning (tracked by ``telemetry/export_errors``)."""
+    try:
+        line = json.dumps(snapshot_row(tel, step))
+    except (TypeError, ValueError) as e:
+        tel.count("telemetry/export_errors")
+        print(
+            f"sat_tpu_torch: telemetry.jsonl append failed ({path}): {e}",
+            file=sys.stderr,
+            flush=True,
+        )
+        return
+    rotating_append(path, line, cap_bytes, tel=tel)
 
 
 # ---------------------------------------------------------------------------

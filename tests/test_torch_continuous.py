@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sat_tpu_torch import telemetry
 from sat_tpu_torch.ops.fused_attend import fused_attend
 from sat_tpu_torch.serve.batcher import ContinuousBatcher, Rejected
 from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
@@ -28,11 +29,13 @@ def served(tmp_path_factory):
 
     from sat_tpu_torch.data.vocabulary import Vocabulary
 
+    telemetry.enable()  # as serve() does: /stats reads it
     state, _ = load_serving_state(tc, device="cpu")
     engine = ServeEngine(tc, state, Vocabulary(tc.vocabulary_size, tc.vocabulary_file), device="cpu")
     server = CaptionServer(tc, engine, port=0, host="127.0.0.1").start()
     yield dict(jc=jc, tc=tc, variables=variables, vocab=vocab, engine=engine, server=server)
     server.shutdown()
+    telemetry.disable()
 
 
 def test_http_captions_match_jax(served):
@@ -66,7 +69,7 @@ def test_stats_has_the_slot_pool_block(served):
     status, stats = _get(server, "/stats")
     assert status == 200
     pool = stats["slot_pool"]
-    assert (pool["slots"], pool["pages"], pool["page_width"], pool["occupancy"]) == (4, 2, 2, 0)
+    assert (pool["slots"], pool["pages"], pool["page_width"], pool["busy"]) == (4, 2, 2, 0)
     assert pool["dispatches"] >= 1 and pool["steps"] >= pool["dispatches"]
     assert set(pool["dispatches_per_k"]) == {"1", "2", "4", "8"}
     assert sum(pool["dispatches_per_k"].values()) == pool["dispatches"]
@@ -74,7 +77,7 @@ def test_stats_has_the_slot_pool_block(served):
     # CPU tensors: the plain versions, no kernel launch
     assert stats["kernels"]["fused_attend"] == {"launches": 0, "masked_launches": 0}
     assert fused_attend.masked_launches == 0
-    assert stats["counters"]["completed"] == stats["counters"]["admitted"] >= 1
+    assert stats["counters"]["serve/completed"] == stats["counters"]["serve/admitted"] >= 1
 
 
 def test_more_requests_than_slots_are_admitted_and_drained(served):
@@ -83,7 +86,8 @@ def test_more_requests_than_slots_are_admitted_and_drained(served):
     request completes with the captions it gets alone."""
     engine = served["engine"]
     images = [engine.preprocess(b) for b in _jpegs(9, seed=5)]
-    batcher = ContinuousBatcher(engine, pool=PagedSlotPool(engine), queue_depth=16)
+    # a registry of its own: counter_snapshot() views this batcher's counts alone
+    batcher = ContinuousBatcher(engine, pool=PagedSlotPool(engine), queue_depth=16, tel=telemetry.Telemetry())
     reqs = [batcher.submit(im) for im in images]
     batcher.start()
     try:
@@ -106,7 +110,7 @@ def test_more_requests_than_slots_are_admitted_and_drained(served):
 def test_full_queue_sheds_429_and_expired_deadline_504(served):
     engine = served["engine"]
     image = engine.preprocess(_jpegs(1)[0])
-    batcher = ContinuousBatcher(engine, pool=PagedSlotPool(engine), queue_depth=1)
+    batcher = ContinuousBatcher(engine, pool=PagedSlotPool(engine), queue_depth=1, tel=telemetry.Telemetry())
     late = batcher.submit(image, deadline_unix=0.0)
     with pytest.raises(Rejected) as e:
         batcher.submit(image)

@@ -195,7 +195,8 @@ def test_int8_engine_quantizes_once_and_keeps_no_float32_cnn(tmp_path, monkeypat
     pool.warmup()
     assert pool.admit([(images[0], 0)]) == 1
     assert calls == [1]
-    server = CaptionServer(tc, engine, port=0).start()
+    # the server's heartbeat and access log land under summary_dir
+    server = CaptionServer(tc.replace(summary_dir=str(tmp_path / "summary")), engine, port=0).start()
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/stats", timeout=30) as r:
             block = json.loads(r.read())["engine"]

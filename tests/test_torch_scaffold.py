@@ -94,7 +94,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "knob",
     [
-        {"serve_wedge_timeout_ms": 250.0},  # the watchdog is not ported: never ignored
+        {"tenants": "a:1"},  # the tenant plane is not ported: never ignored
         {"encode_cache": "on"},
     ],
 )

@@ -22,6 +22,7 @@ from sat_tpu.data.vocabulary import vocab_fingerprint as jax_vocab_fingerprint
 from sat_tpu.models.captioner import encode as jax_encode
 from sat_tpu.ops.beam_search import beam_search as jax_beam_search
 from sat_tpu.resilience import lineage as jax_lineage
+from sat_tpu_torch import telemetry
 from sat_tpu_torch.ops.fused_attend import fused_attend
 from sat_tpu_torch.serve.batcher import MicroBatcher, Rejected
 from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
@@ -51,6 +52,7 @@ def make_checkpoint(root, **overrides):
     settings = dict(
         save_dir=str(root / "models"),
         vocabulary_file=str(root / "vocabulary.csv"),
+        summary_dir=str(root / "summary"),  # the server's telemetry files land under it
         serve_buckets=(1, 4),
         serve_max_batch=4,
         serve_max_wait_ms=20.0,
@@ -78,12 +80,14 @@ def served(tmp_path_factory):
 
     from sat_tpu_torch.data.vocabulary import Vocabulary
 
+    telemetry.enable()  # as serve() does: /stats and /metrics read it
     state, _ = load_serving_state(tc, device="cpu")
     engine = ServeEngine(tc, state, Vocabulary(tc.vocabulary_size, tc.vocabulary_file), device="cpu")
     engine.warmup()
     server = CaptionServer(tc, engine, port=0, host="127.0.0.1").start()
     yield dict(jc=jc, tc=tc, variables=variables, vocab=vocab, engine=engine, server=server)
     server.shutdown()
+    telemetry.disable()
 
 
 def _post(server, body, path="/caption"):
@@ -170,12 +174,13 @@ def test_http_errors_and_stats(served):
     assert status == 400 and payload["error"] == "bad image"
     status, _ = _post(server, b"")
     assert status == 400
-    assert _get(server, "/healthz") == (200, {"status": "ok", "model_step": 5})
+    status, health = _get(server, "/healthz")
+    assert status == 200 and (health["status"], health["model_step"]) == ("ok", 5)
     status, stats = _get(server, "/stats")
     assert status == 200
-    assert stats["queue_depth"] == 0 and stats["requests_served"] >= 3
+    assert stats["queue_depth"] == 0 and stats["counters"]["serve/completed"] >= 3
     assert stats["kernels"]["fused_attend"]["launches"] == fused_attend.launches
-    assert stats["counters"]["batches"] >= 1
+    assert stats["counters"]["serve/batches"] >= 1
 
 
 def test_full_queue_sheds_429(served):
@@ -212,17 +217,88 @@ def test_bucket_overflow_sheds_429(served):
         batcher.drain(timeout=60)
 
 
-@pytest.mark.parametrize(
-    "knob", [{"blackbox": True}, {"trace_export": "/nonexistent/trace.json"}], ids=lambda k: next(iter(k))
-)
-def test_serve_refuses_the_flight_recorder_and_trace_export(knob, tmp_path):
-    """Neither is ported: serve raises rather than run without writing what
-    the knob asks for."""
-    from sat_tpu_torch.serve.engine import check_ported
+def serve_in_process(tc, until=None, timeout=120.0):
+    """``serve(tc, device="cpu")`` on this (the main) thread, as the CLI
+    runs it: a helper thread waits for readiness, runs ``until(port)``,
+    then delivers SIGTERM to this process.  Returns (serve's result,
+    until's result)."""
+    import signal
+    import time
+
     from sat_tpu_torch.serve.server import serve
 
-    _, tc = configs(**knob)
-    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}=.*not ported"):
-        check_ported(tc)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve(tc.replace(save_dir=str(tmp_path)), device="cpu")
+    box = {}
+
+    def drive():
+        deadline = time.monotonic() + timeout
+        try:
+            while time.monotonic() < deadline:
+                gauges = telemetry.get().gauges()
+                if gauges.get("serve/ready") == 1 and "port" in box:
+                    break
+                time.sleep(0.05)
+            if until is not None:
+                box["until"] = until(box["port"])
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    import sat_tpu_torch.serve.server as server_mod
+
+    start = server_mod.CaptionServer.start
+
+    def start_and_report(self):
+        out = start(self)
+        box["port"] = self.port
+        return out
+
+    server_mod.CaptionServer.start = start_and_report
+    helper = threading.Thread(target=drive, daemon=True)
+    try:
+        helper.start()
+        rc = serve(tc, device="cpu")
+    finally:
+        server_mod.CaptionServer.start = start
+        helper.join(timeout=timeout)
+        telemetry.disable()
+    return rc, box.get("until")
+
+
+@pytest.mark.parametrize(
+    "knob", [{"blackbox": True}, {"trace_export": "trace.json"}], ids=lambda k: next(iter(k))
+)
+def test_serve_writes_the_flight_recorder_and_trace_export(knob, tmp_path):
+    """Both act in serve: the flight recorder journals the serve's start
+    and clean drain under <telemetry_dir>/blackbox (no postmortem bundle
+    on a clean exit); the trace export writes one lane a request."""
+    from sat_tpu_torch.serve.engine import check_ported
+    from sat_tpu_torch.telemetry import blackbox
+
+    name = next(iter(knob))
+    if name == "trace_export":
+        knob = {name: str(tmp_path / knob[name])}
+    _, tc, _, _ = make_checkpoint(tmp_path, **knob)
+    tdir = tmp_path / "telemetry"
+    tc = tc.replace(telemetry_dir=str(tdir))
+    check_ported(tc)
+    try:
+        rc, status = serve_in_process(tc, until=lambda port: _post_port(port, _jpegs(1)[0])[0])
+    finally:
+        blackbox.uninstall()
+    assert rc == 0 and status == 200
+    if name == "blackbox":
+        events = [json.loads(line) for line in (tdir / "blackbox" / "seg_000.jsonl").read_text().splitlines()]
+        assert [e["event"] for e in events] == ["serve_start", "serve_drained"]
+        assert not list(tdir.glob("postmortem_*"))
+    else:
+        doc = json.loads((tmp_path / "trace.json").read_text())
+        lanes = [e for e in doc["traceEvents"] if e.get("cat") == "request" and e["name"].startswith("request ")]
+        assert len(lanes) == 1 and lanes[0]["args"]["status"] == 200
+
+
+def _post_port(port, body):
+    class _S:
+        pass
+
+    server = _S()
+    server.port = port
+    return _post(server, body)

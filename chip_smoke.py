@@ -102,6 +102,29 @@ Phases, each fatal on failure:
    control's decode steps, relaunched: the output directory bitwise the
    control's; a second relaunch: "nothing to do".  Then one shard
    decoded in-process under torch.profiler: the card's busy share.
+14a. serve planes — the flagship in-process, telemetry on: (1) the encode
+   cache: one image's contexts at widths 1/4/16/32 compared first, then
+   36 lone requests over 12 JPEGs in one seeded order, cache off and on,
+   in batch and continuous mode: every repeat bitwise its cold reply, on
+   against off bitwise if the encoder is width-invariant, else the same
+   words and the best log-prob within 1e-3 relative; the hit ratio, the
+   gather p50 beside the encode p50, a 4-request burst of a new image =
+   1 miss; (2) an encode-tier server (batch) and a decode-tier server
+   (continuous): /encode frames caption on both with the image's own
+   words, a flipped bit 400, another step 409, the frame's crc timed on
+   each side; (3) the lifecycle in continuous mode, manual policy: a
+   jittered candidate /reload-ed while requests flow (p50 before and
+   during the load), canary ids served by the candidate through the
+   clone pool, /promote (the same ids then bitwise the canary's
+   replies), a second candidate rolled back and rejected, /healthz's
+   lifecycle_state sequence; (4) tenants: X-Model to a resident model
+   (a second seeded checkpoint) equal to a server booted on it alone, in
+   both modes, the free tenant's third quick request 429 with
+   Retry-After and scope tenant; (5) quality on, window 32: 40 requests,
+   /quality_reference 200, the /stats quality block, the lone-request
+   p50 off and on in turns; ``--phase bulk`` with quality on over the
+   steady fixture's first 64 files killed at half its decode steps and
+   relaunched: bitwise.  B1 and B2 counted on every part.
 15. train reference — the train path at the small float32 size, dropout
    off: 3 Adam steps on the card and on the CPU from the same weights
    and batch (losses within 1e-5 relative, parameters within 1e-5
@@ -139,6 +162,8 @@ Phases, each fatal on failure:
    corpus (B2 launched, B1 not).  Kernels B1 and B2 at ResNet50's grid
    run in phases 3 and 4 (B = 96, 60, 48, 3; the pool's 48 with 48, 24
    and 3 rows live; row invariance).
+19a. resnet50 serve planes — part (1) of 14a at ResNet50 in continuous
+   mode.
 20. resnet50 eval and train — ``--phase eval`` through the CLI on phase
    9's fixture (B1 once a decode step); 20 ``--train_cnn`` steps of
    ``runtime.train`` at full width (median warm step, peak memory,
@@ -161,6 +186,9 @@ Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card or without the package beside it.
+
+``python3 chip_smoke.py --planes`` runs only the build and phases 14a
+and 19a (on their own checkpoints and a 64-file fixture).
 
 ``python3 chip_smoke.py --bench`` runs only the build and a kernel
 bench: the kernel at every timed shape beside what bounds it there, the
@@ -1199,11 +1227,11 @@ def device_stall(torch, np, engine, config, card: str, bodies):
     encode_batch = engine.encode_batch
     armed = [True]
 
-    def stalled(images, costs=None):
+    def stalled(images, *args, **kwargs):
         if armed[0]:
             armed[0] = False
             torch.cuda._sleep(cycles)
-        return encode_batch(images, costs)
+        return encode_batch(images, *args, **kwargs)
 
     engine.encode_batch = stalled
     server = CaptionServer(config.replace(serve_wedge_timeout_ms=wedge_ms, heartbeat_interval=0.0,
@@ -1860,6 +1888,585 @@ def bulk_phase(torch, np, tmp: str, card: str):
         print(f"profile bulk kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}",
               flush=True)
     return tally["masked"] + kill_tally["masked"] + resumed["masked"]
+
+
+# -- serve planes: the encode cache, the tier handoff, the lifecycle, tenants, quality --------
+
+PLANES_IMAGES = 12     # distinct JPEGs of the cache traffic, each sent 3 times
+PLANES_BULK = 64       # the quality bulk run's files: the steady fixture's first 64
+
+
+def planes_engine(config, model_file=None):
+    """A serve engine on the card for ``config`` (warmed in batch mode;
+    the server warms the pool in continuous mode), recording into the
+    telemetry registry live when it is built."""
+    from sat_tpu_torch.data.vocabulary import Vocabulary
+    from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
+
+    state, _ = load_serving_state(config, model_file=model_file, device="cuda")
+    engine = ServeEngine(config, state, Vocabulary(config.vocabulary_size, config.vocabulary_file), device="cuda")
+    if config.serve_mode == "batch":
+        engine.warmup()
+    return engine
+
+
+def planes_server(config, engine):
+    from sat_tpu_torch.serve.server import CaptionServer
+
+    return CaptionServer(config, engine, port=0, host="127.0.0.1").start()
+
+
+def beams(payload):
+    return [(c["caption"], c["log_prob"]) for c in payload["captions"]]
+
+
+def ok_reply(np, config, status, payload, where: str):
+    if status != 200 or len(payload.get("captions", ())) != config.beam_size or not all(
+            isinstance(c["caption"], str) and np.isfinite(c["log_prob"]) for c in payload["captions"]):
+        fail(f"{where}: reply {status} {payload}")
+
+
+def width_invariance(torch, np, engine, body) -> dict:
+    """One image encoded at row 0 of batches of 1, 4, 16 and 32 (zeros
+    elsewhere): the largest difference of its contexts from width 1's."""
+    image = engine.preprocess(body)
+    size = engine.config.image_size
+    out, ref = {}, None
+    with torch.inference_mode():
+        for w in (1, 4, 16, 32):
+            batch = np.zeros((w, size, size, 3), engine._image_dtype)
+            batch[0] = image
+            ctx = engine.encode_images(batch)[0].float()
+            ref = ctx if ref is None else ref
+            out[w] = float((ctx - ref).abs().max())
+    return out
+
+
+def cache_part(torch, np, fa, config, card: str, bodies, where: str, modes=("batch", "continuous")):
+    """36 requests over 12 JPEGs in one seeded order, one at a time, to a
+    server with the encode cache off and then on, in each mode: every
+    repeat of an image bitwise its first (cold) reply; on against off
+    bitwise when the encoder gives the same bits at every width (checked
+    first), else the same words and the best log-prob within 1e-3
+    relative; a 4-request concurrent burst of a new image: exactly one
+    miss.  Returns (B1 launches, B2 launches, the batch-mode off engine)."""
+    from sat_tpu_torch import telemetry
+
+    order = np.random.default_rng(SEED + 60).permutation(np.repeat(np.arange(PLANES_IMAGES), 3))
+    b1 = b2 = 0
+    keep = None
+    widths = None
+    for mode in modes:
+        replies = {}
+        for cache in ("off", "on"):
+            tel = telemetry.enable()
+            cfg = config.replace(serve_mode=mode, encode_cache=cache,
+                                 telemetry_dir=os.path.join(os.path.dirname(config.save_dir), f"t_{mode}_{cache}"))
+            engine = planes_engine(cfg)
+            if widths is None:
+                widths = width_invariance(torch, np, engine, bodies[0])
+                print(f"{where} encoder width invariance on {card}: one image's contexts at widths 1/4/16/32, "
+                      f"max abs diff from width 1: {widths}", flush=True)
+            server = planes_server(cfg, engine)
+            try:
+                fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+                got = [caption(server.port, bodies[i]) for i in order]
+                launched = (fa.fused_attend.launches, fa.fused_attend.masked_launches)
+                stats = get_stats(server.port)
+                burst = None
+                if cache == "on":
+                    before = dict(engine.encode_cache.stats())
+                    _, burst = post_all(server.port, [bodies[PLANES_IMAGES]] * 4)
+                    after = engine.encode_cache.stats()
+                    burst = {k: after[k] - before[k] for k in ("misses", "hits", "coalesced")}
+            finally:
+                server.shutdown()
+                telemetry.disable()
+            for status, payload, _, _ in got:
+                ok_reply(np, cfg, status, payload, f"{where} {mode} cache {cache}")
+            cold = {}
+            for i, (_, payload, _, _) in zip(order, got):
+                if i in cold and beams(payload) != cold[i]:
+                    fail(f"{where} {mode} cache {cache}: image {i} repeated is not bitwise its cold reply")
+                cold.setdefault(i, beams(payload))
+            if launched[0 if mode == "batch" else 1] == 0:
+                fail(f"{where} {mode} cache {cache}: the {'unmasked' if mode == 'batch' else 'masked'} "
+                     f"fused_attend never launched: {launched}")
+            b1, b2 = b1 + launched[0], b2 + launched[1]
+            replies[cache] = [p for _, p, _, _ in got]
+            enc = stats["engine"].get("encode_ms", {})
+            lat = statistics.median(g[3] for g in got)
+            if cache == "on":
+                block = stats["encode_cache"]
+                want = len(order) - PLANES_IMAGES
+                if block["hits"] + block["coalesced"] != want or block["misses"] != PLANES_IMAGES:
+                    fail(f"{where} {mode}: cache block {block} for {len(order)} requests over {PLANES_IMAGES} images")
+                if burst["misses"] != 1 or burst["hits"] + burst["coalesced"] != 3:
+                    fail(f"{where} {mode}: a 4-request burst of one new image gave {burst}")
+                gather = block.get("gather_ms", {})
+                print(f"{where} {mode} cache on, {card}: hit ratio {block['hit_ratio']} ({block['hits']} hits, "
+                      f"{block['coalesced']} coalesced, {block['misses']} misses of {len(order)}; ring "
+                      f"{block['rows']} rows, {block['capacity_bytes'] / 2**20:.1f} MiB), serve/cache_gather p50 "
+                      f"{gather.get('p50')} ms vs serve/encode p50 {enc.get('p50')} ms (misses only); request "
+                      f"p50 {lat:.2f} ms; burst of 4 of one new image: {burst}; every hit bitwise its cold "
+                      f"reply; launches B1 {launched[0]}, B2 {launched[1]}", flush=True)
+            else:
+                print(f"{where} {mode} cache off, {card}: serve/encode p50 {enc.get('p50')} ms (every request); "
+                      f"request p50 {lat:.2f} ms; launches B1 {launched[0]}, B2 {launched[1]}", flush=True)
+            if mode == "batch" and cache == "off" and keep is None:
+                keep = engine
+            del engine
+        pairs = list(zip(replies["on"], replies["off"]))
+        invariant = all(v == 0.0 for v in widths.values())
+        if invariant:
+            if any(beams(a) != beams(b) for a, b in pairs):
+                fail(f"{where} {mode}: cache on and off differ though the encoder is width-invariant")
+            verdict = "bitwise"
+        else:
+            for a, b in pairs:
+                ba, bb = a["captions"][0], b["captions"][0]
+                if [c["caption"] for c in a["captions"]] != [c["caption"] for c in b["captions"]] or \
+                        abs(ba["log_prob"] - bb["log_prob"]) > 1e-3 * abs(bb["log_prob"]):
+                    fail(f"{where} {mode}: cache on and off disagree past the gate: {a} vs {b}")
+            verdict = "same words, best log-prob within 1e-3 relative"
+        print(f"{where} {mode}: cache on vs off over {len(pairs)} requests: {verdict}", flush=True)
+    return b1, b2, keep
+
+
+def tier_part(torch, np, fa, config, card: str, bodies):
+    """An encode-tier server (batch mode) and a decode-tier server
+    (continuous mode) in this process: /encode frames caption on the
+    decode tier (B2) and on the encode tier (B1) with the words the
+    decode tier gives the image itself; a flipped bit 400, another step
+    409; the frame's crc timed on each side."""
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.serve import handoff
+
+    tel = telemetry.enable()
+    base = os.path.dirname(config.save_dir)
+    enc_cfg = config.replace(serve_tier="encode", telemetry_dir=os.path.join(base, "t_encode"))
+    dec_cfg = config.replace(serve_tier="decode", serve_mode="continuous", telemetry_dir=os.path.join(base, "t_decode"))
+    enc_engine, dec_engine = planes_engine(enc_cfg), planes_engine(dec_cfg)
+    enc, dec = planes_server(enc_cfg, enc_engine), planes_server(dec_cfg, dec_engine)
+    try:
+        if not enc_engine._enc_one_warm or healthz(enc.port)[1]["tier"] != "encode":
+            fail("tiers: the encode tier did not warm its width-1 encode before ready")
+        fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+        encode_ms, frames = [], []
+        for i in range(4):
+            t0 = time.perf_counter()
+            status, hdrs, frame = http(enc.port, "POST", "/encode", bodies[i], {"Content-Type": "image/jpeg"})
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or hdrs.get("Content-Type") != handoff.GRID_CONTENT_TYPE:
+                fail(f"tiers: /encode gave {status} {hdrs.get('Content-Type')}: {frame[:200]}")
+            frames.append(frame)
+            grid_hdr = {"Content-Type": handoff.GRID_CONTENT_TYPE}
+            words = {}
+            for name, port in (("decode", dec.port), ("encode", enc.port)):
+                status, _, raw = http(port, "POST", "/caption", frame, grid_hdr)
+                payload = json.loads(raw)
+                ok_reply(np, config, status, payload, f"tiers: a frame on the {name} tier")
+                words[name] = [c["caption"] for c in payload["captions"]]
+            status, payload, _, _ = caption(dec.port, bodies[i])
+            ok_reply(np, config, status, payload, "tiers: an image on the decode tier")
+            both = [c["caption"] for c in payload["captions"]]
+            if words["decode"] != both or words["encode"] != both:
+                fail(f"tiers: image {i}: frame words {words} vs the image's own {both}")
+        launched = (fa.fused_attend.launches, fa.fused_attend.masked_launches)
+        bad = bytearray(frames[0])
+        bad[-7] ^= 0x10
+        status, _, raw = http(dec.port, "POST", "/caption", bytes(bad), {"Content-Type": handoff.GRID_CONTENT_TYPE})
+        if status != 400 or b"crc32c" not in raw:
+            fail(f"tiers: a flipped bit gave {status} {raw[:200]}")
+        grid, header = handoff.decode_grid(frames[0])
+        stale = handoff.encode_grid(grid, step=int(header["step"]) + 1)
+        status, _, raw = http(dec.port, "POST", "/caption", stale, {"Content-Type": handoff.GRID_CONTENT_TYPE})
+        if status != 409:
+            fail(f"tiers: a grid stamped with another step gave {status} {raw[:200]}")
+        enc_crc = statistics.median(timed_call(lambda: handoff.encode_grid(grid, step=1)) for _ in range(20))
+        dec_crc = statistics.median(timed_call(lambda: handoff.decode_grid(frames[0])) for _ in range(20))
+    finally:
+        enc.shutdown()
+        dec.shutdown()
+        telemetry.disable()
+    if launched[0] == 0 or launched[1] == 0:
+        fail(f"tiers: fused_attend launches {launched}: both bodies must run on the handoff paths")
+    print(f"tiers on {card}: 4 /encode frames of {len(frames[0])} bytes ({grid.shape} {grid.dtype}) captioned on "
+          f"the decode tier (continuous) and the encode tier (batch) with the image's own words; flipped bit "
+          f"400, another step 409; /encode p50 {statistics.median(encode_ms):.2f} ms (client clock); the "
+          f"frame's crc32c: framing {enc_crc:.2f} ms (encode side), checking {dec_crc:.2f} ms (decode side); "
+          f"launches B1 {launched[0]}, B2 {launched[1]}", flush=True)
+    return launched
+
+
+def timed_call(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def stage_candidate(np, config, src: str, step: int, seed: int) -> str:
+    """``src`` with its decoder's float tensors jittered (N(0, 0.02) from
+    ``seed``) as ``<step>.npz`` in ``config.save_dir``, with its sidecar,
+    and LAST_GOOD pointed at it."""
+    from sat_tpu_torch.data.vocabulary import vocab_fingerprint
+    from sat_tpu_torch.resilience import lineage
+
+    rng = np.random.default_rng(seed)
+    with np.load(src) as z:
+        flat = {k: z[k] for k in z.files}
+    for k in sorted(flat):
+        if k.startswith("params/decoder/") and flat[k].dtype.kind == "f":
+            flat[k] = (flat[k] + rng.normal(0, 0.02, flat[k].shape)).astype(flat[k].dtype)
+    flat["global_step"] = np.asarray(step, np.int32)
+    path = os.path.join(config.save_dir, f"{step}.npz")
+    np.savez(path, **flat)
+    lineage.write_sidecar(path, vocab=vocab_fingerprint(config.vocabulary_file, config.vocabulary_size))
+    lineage.mark_last_good(config.save_dir, step)
+    return path
+
+
+def slot_ids(fraction: float, n: int = 3):
+    from sat_tpu_torch.lifecycle.canary import CANARY, assign_slot
+
+    inc, can, i = [], [], 0
+    while len(inc) < n or len(can) < n:
+        rid = f"planes-{i}"
+        i += 1
+        (can if assign_slot(rid, fraction) == CANARY else inc).append(rid)
+    return inc[:n], can[:n]
+
+
+def lifecycle_part(torch, np, fa, config, card: str, bodies):
+    """Continuous mode, ``promote_policy="manual"``: a jittered candidate
+    staged and ``POST /reload``ed while requests flow (their p50 beside
+    the p50 before); canary ids get ``slot="canary"`` and the candidate's
+    step (B2 through the clone pool); ``/promote``, after which the same
+    ids get the canary's replies bitwise from the incumbent slot; a
+    second candidate rolled back and rejected.  ``/healthz``'s
+    ``lifecycle_state`` is polled throughout."""
+    import shutil
+
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.resilience import lineage
+
+    root = os.path.join(os.path.dirname(config.save_dir), "planes_lifecycle")
+    os.makedirs(root)
+    src = lineage.last_good_checkpoint(config.save_dir)
+    for name in (src, lineage.sidecar_path(src)):
+        shutil.copy(name, root)
+    base_step = lineage.last_good_step(config.save_dir)
+    lineage.mark_last_good(root, base_step)
+    cfg = config.replace(serve_mode="continuous", save_dir=root, promote_policy="manual", canary_fraction=0.5,
+                         canary_window_s=600.0, model_reload=0.0,
+                         telemetry_dir=os.path.join(root, "telemetry"))
+    inc_ids, can_ids = slot_ids(cfg.canary_fraction)
+    tel = telemetry.enable()
+    engine = planes_engine(cfg)
+    server = planes_server(cfg, engine)
+    states, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            state = healthz(server.port)[1]["lifecycle_state"]
+            if not states or states[-1] != state:
+                states.append(state)
+            time.sleep(0.01)
+
+    def wait_state(want, limit_s=120.0):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < limit_s:
+            if get_stats(server.port)["lifecycle"]["state"] == want:
+                return
+            time.sleep(0.02)
+        fail(f"lifecycle: never reached {want}: {get_stats(server.port)['lifecycle']}")
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        before = [caption(server.port, bodies[i % 4], inc_ids[i % 3]) for i in range(12)]
+        during, flowing = [], threading.Event()
+
+        def flow():
+            i = 0
+            while not flowing.is_set():
+                during.append(caption(server.port, bodies[i % 4], inc_ids[i % 3]))
+                i += 1
+
+        stage_candidate(np, cfg, src, base_step + 1000, SEED + 80)
+        flower = threading.Thread(target=flow, daemon=True)
+        flower.start()
+        t0 = time.perf_counter()
+        status, _, raw = http(server.port, "POST", "/reload")
+        if status != 200:
+            fail(f"lifecycle: /reload gave {status} {raw[:300]}")
+        wait_state("CANARY")
+        load_s = time.perf_counter() - t0
+        flowing.set()
+        flower.join(timeout=120)
+        hz = healthz(server.port)[1]
+        if hz.get("candidate_step") != base_step + 1000:
+            fail(f"lifecycle: /healthz during the canary: {hz}")
+        fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+        canary = {}
+        for j, rid in enumerate(can_ids):
+            status, payload, _, _ = caption(server.port, bodies[j], rid)
+            ok_reply(np, cfg, status, payload, "lifecycle canary")
+            if (payload["slot"], payload["model_step"]) != ("canary", base_step + 1000):
+                fail(f"lifecycle: canary id {rid} got slot {payload['slot']} step {payload['model_step']}")
+            canary[rid] = beams(payload)
+        canary_b2 = fa.fused_attend.masked_launches
+        clone = server.batcher._canary_pool
+        if canary_b2 == 0 or clone is None or clone.engine is not engine or clone.param_slot != "canary":
+            fail("lifecycle: the canary requests did not run B2 through a canary pool over the one engine")
+        for j, rid in enumerate(inc_ids):
+            status, payload, _, _ = caption(server.port, bodies[j], rid)
+            if (status, payload.get("slot"), payload.get("model_step")) != (200, "incumbent", base_step):
+                fail(f"lifecycle: incumbent id {rid} during the canary got {status} {payload}")
+        status, _, raw = http(server.port, "POST", "/promote")
+        if status != 200 or json.loads(raw)["model_step"] != base_step + 1000:
+            fail(f"lifecycle: /promote gave {status} {raw[:300]}")
+        blackout = get_stats(server.port)["lifecycle"]["last_cycle"]["blackout_ms"]
+        for j, rid in enumerate(can_ids):
+            status, payload, _, _ = caption(server.port, bodies[j], rid)
+            if (payload.get("slot"), payload.get("model_step")) != ("incumbent", base_step + 1000) or \
+                    beams(payload) != canary[rid]:
+                fail(f"lifecycle: after the promote, id {rid} is not the canary's reply bitwise: {payload}")
+        stage_candidate(np, cfg, src, base_step + 2000, SEED + 81)
+        status, _, raw = http(server.port, "POST", "/reload")
+        if status != 200:
+            fail(f"lifecycle: the second /reload gave {status} {raw[:300]}")
+        wait_state("CANARY")
+        status, _, raw = http(server.port, "POST", "/rollback")
+        if status != 200 or json.loads(raw)["state"] != "IDLE":
+            fail(f"lifecycle: /rollback gave {status} {raw[:300]}")
+        if not lineage.is_rejected(root, base_step + 2000):
+            fail("lifecycle: the rolled-back step is not in the rejection ledger")
+        status, _, raw = http(server.port, "POST", "/reload")
+        if status != 409:
+            fail(f"lifecycle: a rejected step reloaded: {status} {raw[:300]}")
+        for j, rid in enumerate(can_ids):
+            status, payload, _, _ = caption(server.port, bodies[j], rid)
+            if payload.get("model_step") != base_step + 1000 or beams(payload) != canary[rid]:
+                fail(f"lifecycle: after the rollback, id {rid} changed: {payload}")
+        launches = (fa.fused_attend.launches, fa.fused_attend.masked_launches)
+    finally:
+        stop.set()
+        poller.join(timeout=10)
+        server.shutdown()
+        telemetry.disable()
+    for status, payload, _, _ in before + during:
+        ok_reply(np, cfg, status, payload, "lifecycle: a request before or during the load")
+    p_before = statistics.median(r[3] for r in before)
+    p_during = statistics.median(r[3] for r in during) if during else float("nan")
+    print(f"lifecycle on {card}: candidate load to CANARY {load_s:.2f}s; request p50 before {p_before:.2f} ms "
+          f"(12), during the load {p_during:.2f} ms ({len(during)}); /healthz lifecycle_state sequence "
+          f"{states}; canary ids slot canary at step {base_step + 1000} (B2 {canary_b2} launches through the "
+          f"clone pool), promoted (blackout {blackout} ms: a promote "
+          f"waits out captions in flight), the same ids then bitwise the canary's replies; step "
+          f"{base_step + 2000} rolled back and rejected; launches after the reload B1 {launches[0]}, B2 "
+          f"{launches[1]}", flush=True)
+    return launches
+
+
+def tenants_part(torch, np, fa, config, card: str, bodies):
+    """Two tenants, ``pro`` (weight 2) and ``free`` (1 rps, burst 1), and
+    a resident model ``alt`` (a second seeded checkpoint): ``X-Model:
+    alt`` replies equal a server booted on that checkpoint alone, in
+    continuous (B2) and batch (B1) mode; three quick ``free`` requests:
+    the third is shed with 429, ``Retry-After`` and scope ``tenant``."""
+    from sat_tpu_torch import telemetry
+
+    root = os.path.join(os.path.dirname(config.save_dir), "planes_tenants")
+    alt_dir = os.path.join(root, "alt")
+    alt = write_checkpoint(np, config, alt_dir, step=5000, seed=SEED + 90)
+    spec = os.path.join(root, "tenants.json")
+    with open(spec, "w") as f:
+        json.dump({"tenants": [{"name": "pro", "weight": 2}, {"name": "free", "rps": 1, "burst": 1}],
+                   "models": {"alt": alt}}, f)
+    telemetry.enable()
+    try:
+        alone_cfg = config.replace(serve_mode="continuous", save_dir=alt_dir,
+                                   telemetry_dir=os.path.join(root, "t_alone"))
+        server = planes_server(alone_cfg, planes_engine(alone_cfg))
+        try:
+            alone = [caption(server.port, bodies[i]) for i in range(4)]
+        finally:
+            server.shutdown()
+        launches = [0, 0]
+        for mode in ("continuous", "batch"):
+            cfg = config.replace(serve_mode=mode, tenants=spec, telemetry_dir=os.path.join(root, f"t_{mode}"))
+            server = planes_server(cfg, planes_engine(cfg))
+            try:
+                fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+                got = []
+                for i in range(4):
+                    status, hdrs, raw = http(server.port, "POST", "/caption", bodies[i],
+                                             {"Content-Type": "image/jpeg", "X-Tenant": "pro", "X-Model": "alt"})
+                    got.append((status, json.loads(raw)))
+                launches[0] += fa.fused_attend.launches
+                launches[1] += fa.fused_attend.masked_launches
+                if mode == "continuous" and server.batcher._model_pools["alt"].engine is not server.engine:
+                    fail("tenants: the resident model's pool is not over the server's one engine")
+                quick = [http(server.port, "POST", "/caption", bodies[0],
+                              {"Content-Type": "image/jpeg", "X-Tenant": "free"}) for _ in range(3)]
+                stats = get_stats(server.port)
+            finally:
+                server.shutdown()
+            for (status, payload), (_, want, _, _) in zip(got, alone):
+                ok_reply(np, cfg, status, payload, f"tenants {mode}: X-Model alt")
+                if (payload["model"], payload["model_step"], payload["tenant"]) != ("alt", 5000, "pro"):
+                    fail(f"tenants {mode}: X-Model alt reply {payload}")
+                same = beams(payload) == beams(want) if mode == "continuous" else \
+                    [c for c, _ in beams(payload)] == [c for c, _ in beams(want)]
+                if not same:
+                    fail(f"tenants {mode}: X-Model alt {payload} vs the checkpoint alone {want}")
+            status, hdrs, raw = quick[2]
+            body = json.loads(raw)
+            if status != 429 or body.get("shed_scope") != "tenant" or hdrs.get("X-Shed-Scope") != "tenant" \
+                    or not hdrs.get("Retry-After"):
+                fail(f"tenants {mode}: the third quick free request got {status} {hdrs} {body}")
+            if (mode == "batch" and fa.fused_attend.launches == 0) or \
+                    (mode == "continuous" and fa.fused_attend.masked_launches == 0):
+                fail(f"tenants {mode}: the resident model's requests launched no kernel")
+            print(f"tenants {mode} on {card}: X-Model alt (step 5000) words equal a server booted on it alone"
+                  f"{' (bitwise)' if mode == 'continuous' else ''}; free tenant's 3 quick requests "
+                  f"{[q[0] for q in quick]}, the third 429 Retry-After {hdrs.get('Retry-After')} scope tenant; "
+                  f"/stats tenants {sorted(stats['tenants'])}", flush=True)
+    finally:
+        telemetry.disable()
+    return tuple(launches)
+
+
+def quality_part(torch, np, fa, config, card: str, bodies, off_engine, corpus_dir: str):
+    """``serve_quality="on"``, window 32: 40 requests, then
+    ``/quality_reference`` 200 and a ``quality`` block in /stats; the p50
+    of lone requests with quality off and on, in turns; ``--phase bulk``
+    with quality on over the steady fixture's first 64 files (2 shards
+    of 32) killed at half its decode steps and relaunched: the rows
+    bitwise the uninterrupted run's, ``quality`` included."""
+    from sat_tpu_torch import telemetry
+
+    root = os.path.join(os.path.dirname(config.save_dir), "planes_quality")
+    cfg = config.replace(serve_quality="on", serve_quality_window=32, telemetry_dir=os.path.join(root, "t_on"))
+    off_cfg = config.replace(telemetry_dir=os.path.join(root, "t_off"))
+    telemetry.enable()
+    try:
+        on_engine = planes_engine(cfg)
+        servers = {"off": planes_server(off_cfg, off_engine), "on": planes_server(cfg, on_engine)}
+        try:
+            fa.fused_attend.launches = 0
+            lat = {"off": [], "on": []}
+            replies = []
+            for turn in range(4):
+                for name in ("off", "on"):
+                    for i in range(10):
+                        status, payload, _, ms = caption(servers[name].port, bodies[(turn * 10 + i) % 36])
+                        ok_reply(np, cfg, status, payload, f"quality {name}")
+                        lat[name].append(ms)
+                        if name == "on":
+                            replies.append(payload)
+            b1 = fa.fused_attend.launches
+            status, _, raw = http(servers["on"].port, "GET", "/quality_reference")
+            stats = get_stats(servers["on"].port)
+            status_off, _, _ = http(servers["off"].port, "GET", "/quality_reference")
+        finally:
+            for s in servers.values():
+                s.shutdown()
+    finally:
+        telemetry.disable()
+    ref = json.loads(raw)
+    if status != 200 or "quality" not in stats or status_off != 404:
+        fail(f"quality: /quality_reference {status} (off {status_off}), /stats keys {sorted(stats)}: {ref}")
+    q = stats["quality"]
+    print(f"quality on {card}: 40 requests, /quality_reference 200 ({len(json.dumps(ref))} bytes), 404 with it "
+          f"off; /stats quality: {json.dumps(q)[:400]}", flush=True)
+    print(f"quality p50 of a lone request on {card}, batch mode, off / on in 4 turns of 10: "
+          f"{statistics.median(lat['off']):.2f} / {statistics.median(lat['on']):.2f} ms", flush=True)
+
+    base = config.replace(phase="bulk", bulk_input=corpus_dir, bulk_shard_rows=32, serve_quality="on")
+
+    def run(name, where, rc=0, env=None):
+        c = base.replace(bulk_output=os.path.join(root, name), summary_dir=os.path.join(root, name + "_summary"))
+        path = os.path.join(root, name + ".json")
+        c.save(path)
+        tally, _ = run_cli(["--config", path], where, rc=rc, env=env)
+        return c, tally
+
+    control, tally = run("control", "quality bulk")
+    out = bulk_outputs(control.bulk_output)
+    rows = [json.loads(line) for n in sorted(out) if n.endswith(".jsonl") for line in out[n].decode().splitlines()]
+    keys = {"margin", "norm_logprob", "unk_rate", "coverage_dev"}
+    if len(rows) != PLANES_BULK or not all(set(r.get("quality", ())) == keys for r in rows):
+        fail(f"quality bulk: {len(rows)} rows, first {rows[:1]}")
+    if tally["masked"] == 0 or tally["launches"] != 0:
+        fail(f"quality bulk: launches {tally}")
+    with open(os.path.join(control.summary_dir, "telemetry", "heartbeat.json")) as f:
+        steps = json.load(f)["bulk"]["decode_steps"]
+    killed, kill_tally = run("killed", "quality bulk kill", rc=1, env={"SAT_FI_DIE_AT_STEP": str(steps // 2)})
+    _, resumed = run("killed", "quality bulk resume")
+    if bulk_outputs(killed.bulk_output) != out:
+        fail("quality bulk: the relaunched run's output is not bitwise the uninterrupted run's")
+    print(f"quality bulk on {card}: {PLANES_BULK} files in 2 shards with serve_quality on: every row carries "
+          f"{sorted(keys)}; killed at step {steps // 2} of {steps} and relaunched: output bitwise the "
+          f"uninterrupted run's; sample {json.dumps(rows[0]['quality'])}", flush=True)
+    return b1, tally["masked"] + kill_tally["masked"] + resumed["masked"]
+
+
+def serve_planes_phase(torch, np, fa, config, card: str, tmp: str):
+    """Part 1-5 at the flagship: returns (B1, B2) launches on their paths."""
+    bodies = jpegs(np, 36, 256, SEED + 3)
+    steady = os.path.join(tmp, "steady")
+    if not os.path.isdir(os.path.join(steady, "images")):
+        write_coco_fixture(np, steady, PLANES_BULK, SEED + 45, size=STEADY_SIZE)
+    corpus = os.path.join(tmp, "planes_corpus")
+    os.makedirs(corpus)
+    for name in sorted(os.listdir(os.path.join(steady, "images")))[:PLANES_BULK]:
+        os.link(os.path.join(steady, "images", name), os.path.join(corpus, name))
+    b1, b2 = [0], [0]
+
+    def add(pair):
+        b1[0] += pair[0]
+        b2[0] += pair[1]
+
+    from sat_tpu_torch.ops import build
+
+    built = {n: os.path.getmtime(os.path.join(build.BUILD_DIR, n)) for n in os.listdir(build.BUILD_DIR)}
+    calls = [0]
+    build_all = build.build_all
+
+    def counted_build_all():
+        calls[0] += 1
+        return build_all()
+
+    build.build_all = counted_build_all
+    t0 = time.perf_counter()
+    c1, c2, off_engine = cache_part(torch, np, fa, config, card, bodies, "cache")
+    add((c1, c2))
+    print(f"serve planes: cache part {time.perf_counter() - t0:.1f}s", flush=True)
+    ready_calls = calls[0]
+    t0 = time.perf_counter()
+    add(tier_part(torch, np, fa, config, card, bodies))
+    print(f"serve planes: tier part {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    add(lifecycle_part(torch, np, fa, config, card, bodies))
+    print(f"serve planes: lifecycle part {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    add(tenants_part(torch, np, fa, config, card, bodies))
+    print(f"serve planes: tenants part {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    add(quality_part(torch, np, fa, config, card, bodies, off_engine, corpus))
+    print(f"serve planes: quality part {time.perf_counter() - t0:.1f}s", flush=True)
+    build.build_all = build_all
+    now = {n: os.path.getmtime(os.path.join(build.BUILD_DIR, n)) for n in os.listdir(build.BUILD_DIR)}
+    if calls[0] != ready_calls or now != built:
+        fail(f"serve planes: the kernel loader ran {calls[0] - ready_calls} more time(s) after the first "
+             f"server was ready, or the build directory changed ({sorted(built)} -> {sorted(now)})")
+    print(f"serve planes: ops/build loaded the kernel {calls[0]} time(s), none after the first server was "
+          f"ready ({len(now)} built file(s) unchanged); every pool (canary, resident) over its server's one "
+          f"engine", flush=True)
+    return b1[0], b2[0]
+
 
 
 # -- train phases ---------------------------------------------------------------
@@ -2549,6 +3156,7 @@ def encoder_quant_phase(torch, np, tmp: str, card: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", action="store_true", help="build and kernel bench only")
+    ap.add_argument("--planes", action="store_true", help="build and the serve planes phases only")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sat_tpu_torch")):
@@ -2582,6 +3190,22 @@ def main() -> int:
     phase("build", t0)
     if args.bench:
         bench_phase(torch, fa)
+        return 0
+    if args.planes:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            config = flagship_config(tmp)
+            r50 = resnet50_config(tmp)
+            os.makedirs(os.path.dirname(r50.vocabulary_file))
+            for c in (config, r50):
+                write_vocabulary(np, c.vocabulary_file, c.vocabulary_size)
+                write_checkpoint(np, c, c.save_dir, step=1000, seed=SEED)
+            t0 = time.perf_counter()
+            print(f"serve planes launches {serve_planes_phase(torch, np, fa, config, card, tmp)}", flush=True)
+            phase("serve planes", t0)
+            t0 = time.perf_counter()
+            cache_part(torch, np, fa, r50, card, jpegs(np, 36, 256, SEED + 3), "resnet50 cache",
+                       modes=("continuous",))
+            phase("resnet50 serve planes", t0)
         return 0
 
     t0 = time.perf_counter()
@@ -2632,6 +3256,9 @@ def main() -> int:
         bulk_launches = bulk_phase(torch, np, tmp, card)
         phase("bulk", t0)
         t0 = time.perf_counter()
+        planes_b1, planes_b2 = serve_planes_phase(torch, np, fa, flagship_config(tmp), card, tmp)
+        phase("serve planes", t0)
+        t0 = time.perf_counter()
         train_reference_phase(torch, np, fa)
         phase("train reference", t0)
         t0 = time.perf_counter()
@@ -2654,6 +3281,9 @@ def main() -> int:
         r50_bulk = resnet50_bulk(np, tmp, r50, card)
         phase("resnet50 serve and bulk", t0)
         t0 = time.perf_counter()
+        _, r50_planes, _ = cache_part(torch, np, fa, r50, card, bodies, "resnet50 cache", modes=("continuous",))
+        phase("resnet50 serve planes", t0)
+        t0 = time.perf_counter()
         r50_eval = resnet50_eval_phase(np, tmp, card)
         r50_train = resnet50_train_phase(torch, np, tmp, card)
         phase("resnet50 eval and train", t0)
@@ -2670,15 +3300,16 @@ def main() -> int:
         print(f"kernel fused_attend bf16 B={B} N={N} D={row['D']} ({what}) on {card}: {row['ms'] * 1e3:.1f} us, "
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
-    vgg_b1 = launches + ops_launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
+    vgg_b1 = (launches + ops_launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
+              + planes_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
           f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
-          f"step {eval_loss_launches}; ResNet50 batch serve {r50_launches}, eval {r50_eval}, test of the "
-          f"imported npy {import_launches}; train steps 0; masked: VGG16 continuous serve "
-          f"{masked_launches}, bulk {bulk_launches}; ResNet50 continuous serve {r50_masked}, bulk "
-          f"{r50_bulk}", flush=True)
+          f"step {eval_loss_launches}, serve planes {planes_b1}; ResNet50 batch serve {r50_launches}, eval "
+          f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
+          f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}; ResNet50 continuous "
+          f"serve {r50_masked}, bulk {r50_bulk}, serve planes {r50_planes}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 196, "bfloat16"))
     r50_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 49, "bfloat16"))
     masked_row = next(r for r in masked_rows if (r["N"], r["live"]) == (196, 48))
@@ -2706,7 +3337,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
-        "launches": masked_launches + ops_masked + bulk_launches + r50_masked + r50_bulk,
+        "launches": masked_launches + ops_masked + bulk_launches + planes_b2 + r50_masked + r50_bulk + r50_planes,
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],
@@ -2715,7 +3346,7 @@ def main() -> int:
         "bound_by": masked_row["bound_by"],
         "library_ms": None,
         "shape": "B=48 N=196 da=D=512 bfloat16, 48 rows live (16 slots x beam 3)",
-        "launches_resnet50": r50_masked + r50_bulk,
+        "launches_resnet50": r50_masked + r50_bulk + r50_planes,
         "resnet50": {"shape": "B=48 N=49 da=512 D=2048 bfloat16, 48 rows live", "ms": r50_masked_row["ms"],
                      "plain_ms": r50_masked_row["plain_ms"], "bound_ms": r50_masked_row["bound_ms"],
                      "bound_by": r50_masked_row["bound_by"]},

@@ -31,11 +31,15 @@ submitted, so a re-decoded shard repeats the same encodes and windows.
 Nothing on this path sets ``torch.backends.cudnn.benchmark``, so a new
 process picks the same cuDNN algorithms for the same shapes.
 
+With ``serve_quality="on"`` each row also carries its ``quality``
+signals (margin, normalized log-prob, unk rate, coverage deviation),
+host arithmetic on the drained harvest rounded to 6 places, so the
+output stays bitwise deterministic.
+
 Handled differently from the JAX package: the port compiles nothing, so
 there is no compile listener and no ``bulk/steady_compiles`` gauge;
-``serve_quality="on"`` is refused by ``serve.engine.check_ported`` and
-``--blackbox`` here (the flight recorder is wired into serve alone so
-far); ``--supervise`` is refused by the CLI.
+``--blackbox`` is refused here (the flight recorder is wired into serve
+alone so far); ``--supervise`` is refused by the CLI.
 """
 
 from __future__ import annotations
@@ -59,10 +63,11 @@ from ..resilience.preempt import GracefulShutdown
 from ..resilience.quarantine import QuarantineManager, SystemicCorruption, ledger_path_for
 from ..resilience.watchdog import Watchdog, deadlines_from_config
 from ..serve.batcher import choose_decode_depth
-from ..serve.engine import ServeEngine, check_ported, load_serving_state
+from ..serve.engine import ServeEngine, load_serving_state
 from ..serve.slot_pool import PagedSlotPool
 from ..telemetry.heartbeat import Heartbeat
 from ..telemetry.metering import measured_busy_ms
+from ..telemetry.quality import extract_signals
 from .corpus import plan_shards, resolve_corpus
 from .manifest import (
     corpus_fingerprint,
@@ -161,18 +166,21 @@ def _decode_shard(
     fp: FaultPlan,
     wd: Watchdog,
     step_counter: int,
-) -> Tuple[List[Any], int]:
+) -> Tuple[List[Any], List[Any], int]:
     """One assembled shard through the continuous stepped decode: admit
     rows as slots free, run one fused window over the whole pool, drain
     the [S] done flags to the host and harvest finished rows there.  The
     window depth follows the serve loop's policy
     (``batcher.choose_decode_depth``): K=1 while shard rows wait for a
     slot, the deepest once all are submitted.  Returns each row's caption
-    list (row order) and the advanced decode-step counter, the clock of
-    the fault hooks (``SAT_FI_DIE_AT_STEP`` counts decode steps across
-    shards)."""
+    list and quality signals (None with the quality plane off), in row
+    order, and the advanced decode-step counter, the clock of the fault
+    hooks (``SAT_FI_DIE_AT_STEP`` counts decode steps across shards)."""
+    want_quality = engine.config.serve_quality == "on"
+    vocab_size = len(engine.vocabulary.words)
     n = batch.shape[0]
     results: List[Any] = [None] * n
+    quality_rows: List[Any] = [None] * n
     submitted = harvested = 0
     while harvested < n:
         fp.maybe_kill(step_counter)
@@ -190,12 +198,22 @@ def _decode_shard(
         done_host = done.cpu().numpy()
         step_counter += int(steps_run)
         if done_host.any():
-            payloads, words, lengths, scores, _ = pool.harvest(done_host)
+            payloads, words, lengths, scores, _, alphas = pool.harvest(done_host)
             rows = engine.detok_rows((words, lengths, scores), len(payloads))
-            for payload, row in zip(payloads, rows):
+            for j, (payload, row) in enumerate(zip(payloads, rows)):
                 results[payload] = row["captions"]
+                if want_quality:
+                    sig = extract_signals(
+                        words[j], lengths[j], scores[j], vocab_size=vocab_size, eos_id=engine.eos_id,
+                        alphas=None if alphas is None else alphas[j],
+                    )
+                    quality_rows[payload] = {
+                        k: round(sig[k], 6)
+                        for k in ("margin", "norm_logprob", "unk_rate", "coverage_dev")
+                        if k in sig
+                    }
                 harvested += 1
-    return results, step_counter
+    return results, quality_rows, step_counter
 
 
 def run_bulk(config: Config, model_file: Optional[str] = None, device=None) -> int:
@@ -204,7 +222,6 @@ def run_bulk(config: Config, model_file: Optional[str] = None, device=None) -> i
     the card unless ``device="cpu"``."""
     if not config.bulk_output:
         raise ValueError("--bulk_output is required for --phase bulk")
-    check_ported(config)
     if config.blackbox:
         raise NotImplementedError("blackbox=True is not ported to sat_tpu_torch's bulk phase yet (serve only)")
     dev = resolve_device(device)
@@ -321,12 +338,14 @@ def run_bulk(config: Config, model_file: Optional[str] = None, device=None) -> i
                         batch, meta = _assemble_rows(
                             shard_files, engine.loader, cache, quarantine, config.num_data_workers
                         )
-                    results, step_counter = _decode_shard(engine, pool, batch, fp, wd, step_counter)
+                    results, qrows, step_counter = _decode_shard(engine, pool, batch, fp, wd, step_counter)
                     with wd.phase("checkpoint"):
                         writer = ShardWriter(out_dir, shard_idx)
                         try:
                             for i, f in enumerate(shard_files):
                                 row = {"file": f, "captions": results[i]}
+                                if qrows[i] is not None:
+                                    row["quality"] = qrows[i]
                                 row.update(meta.get(i, ()))
                                 writer.write_row(row)
                             fname, rows, crc = writer.finish()

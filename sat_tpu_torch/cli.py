@@ -196,6 +196,75 @@ def build_config(argv: Optional[List[str]] = None):
              "default 0)",
     )
     p.add_argument(
+        "--tenants", default=None, metavar="SPEC",
+        help="serve: multi-tenant registry, a JSON file path or an inline "
+             "'name[:weight[:rps[:burst]]],...' list (the first entry is the "
+             "default tenant of requests without X-Tenant): weighted "
+             "deficit-round-robin lanes, token-bucket quotas, per-tenant SLO "
+             "lanes and resident models (default '' = single-tenant)",
+    )
+    p.add_argument(
+        "--encode_cache", choices=("on", "off"), default=None,
+        help="serve: device-resident content-addressed LRU of encoder "
+             "feature grids keyed by (image key, param fingerprint); a hit "
+             "skips the encode, a miss encodes once with single-flight "
+             "coalescing (default off)",
+    )
+    p.add_argument(
+        "--encode_cache_mb", type=int, default=None,
+        help="serve: device memory for the encode cache's ring (sized at "
+             "warmup; default 64)",
+    )
+    p.add_argument(
+        "--serve_tier", choices=("both", "encode", "decode"), default=None,
+        help="serve: the fleet tier this replica advertises: 'encode' (the "
+             "POST /encode feature-grid tier), 'decode' (fed grids) or "
+             "'both' (default); every replica still captions images",
+    )
+    p.add_argument(
+        "--serve_quality", choices=("on", "off"), default=None,
+        help="serve and bulk: the caption-quality plane (per-request "
+             "signals, streaming drift against a frozen reference, the "
+             "exemplar recorder; bulk rows gain a quality block); default off",
+    )
+    p.add_argument(
+        "--quality_reference", default=None, metavar="JSON",
+        help="serve: a quality_reference.json (from GET /quality_reference) "
+             "to load as the frozen drift reference; default '' freezes it "
+             "from the first serve_quality_window requests",
+    )
+    p.add_argument(
+        "--slo_quality_psi", type=float, default=None, metavar="PSI",
+        help="serve: quality_drift SLO lane over quality/psi_max; "
+             "diagnostic (/healthz stays ok while it burns); 0 disables",
+    )
+    p.add_argument(
+        "--slo_quality_unk", type=float, default=None, metavar="RATE",
+        help="serve: quality_unk SLO lane over quality/unk_rate; 0 disables",
+    )
+    p.add_argument(
+        "--model_reload", type=float, default=None, metavar="SEC",
+        help="serve: poll the lineage LAST_GOOD pointer every SEC seconds "
+             "(jittered) and hot-swap new checkpoints through a canary "
+             "stage (0 = off, the default)",
+    )
+    p.add_argument(
+        "--canary_fraction", type=float, default=None, metavar="F",
+        help="serve: fraction of requests routed to the candidate during "
+             "the canary window, sticky per X-Request-Id",
+    )
+    p.add_argument(
+        "--canary_window_s", type=float, default=None, metavar="SEC",
+        help="serve: the canary window's length before promote or rollback "
+             "is decided",
+    )
+    p.add_argument(
+        "--promote_policy", choices=("auto", "manual"), default=None,
+        help="serve: 'auto' promotes a candidate whose canary window "
+             "elapsed without its SLO burning; 'manual' holds in CANARY "
+             "until POST /promote or /rollback",
+    )
+    p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="override any Config field, repeatable",
     )
@@ -253,6 +322,16 @@ def build_config(argv: Optional[List[str]] = None):
         config = config.replace(trace_export=args.trace_export)
     if args.serve_metering is not None:
         config = config.replace(serve_metering=args.serve_metering == "on")
+    for flag, field in (
+        ("tenants", "tenants"), ("encode_cache", "encode_cache"), ("encode_cache_mb", "encode_cache_mb"),
+        ("serve_tier", "serve_tier"), ("serve_quality", "serve_quality"),
+        ("quality_reference", "serve_quality_reference"), ("slo_quality_psi", "slo_quality_psi"),
+        ("slo_quality_unk", "slo_quality_unk"), ("model_reload", "model_reload"),
+        ("canary_fraction", "canary_fraction"), ("canary_window_s", "canary_window_s"),
+        ("promote_policy", "promote_policy"),
+    ):
+        if getattr(args, flag) is not None:
+            config = config.replace(**{field: getattr(args, flag)})
     if args.slo_capacity_headroom_pct is not None:
         config = config.replace(slo_capacity_headroom_pct=args.slo_capacity_headroom_pct)
     if args.serve_decode_depth is not None:

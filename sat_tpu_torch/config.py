@@ -5,7 +5,7 @@ package's ``Config``, so one config file (or ``--set`` stack) drives both
 packages.  The port keeps this copy instead of importing it: nothing in
 ``sat_tpu_torch`` imports ``sat_tpu``.  Knobs whose subsystem is not
 ported yet are still accepted here; the entry points that cannot honour
-them raise (see ``serve.engine.check_ported``).
+them raise (see ``runtime.check_ported``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Checkpoint lineage — the port's copy of ``sat_tpu.resilience.lineage``
-(without the rejected-step ledger).
+"""Checkpoint lineage — the port's copy of ``sat_tpu.resilience.lineage``.
 
 Layout of a save_dir (the JAX package's)::
 
@@ -7,6 +6,7 @@ Layout of a save_dir (the JAX package's)::
       1500.npz  1500.npz.sha256     # sha256 sidecar, optional JSON meta line
       LAST_GOOD                      # text: "1500\\n"
       config.json                    # step-stamped Config sidecar
+      REJECTED                       # JSONL: steps the lifecycle refused
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import zipfile
 from typing import List, Optional, Tuple
 
 LAST_GOOD_NAME = "LAST_GOOD"
+REJECTED_NAME = "REJECTED"
 SIDECAR_SUFFIX = ".sha256"
 
 _STEP_RE = re.compile(r"(\d+)\.npz")
@@ -154,6 +155,59 @@ def last_good_checkpoint(save_dir: str) -> Optional[str]:
             flush=True,
         )
     return None
+
+
+def _rejected_path(save_dir: str) -> str:
+    return os.path.join(save_dir, REJECTED_NAME)
+
+
+def rejected_steps(save_dir: str) -> set:
+    """Steps the lifecycle controller has permanently rejected (failed
+    canary, vocab mismatch, shape drift).  A rejected step is never
+    re-canaried even if LAST_GOOD still points at it."""
+    steps = set()
+    try:
+        with open(_rejected_path(save_dir)) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    steps.add(int(json.loads(line)["step"]))
+                except (ValueError, KeyError, TypeError):
+                    continue
+    except OSError:
+        pass
+    return steps
+
+
+def is_rejected(save_dir: str, step: int) -> bool:
+    return int(step) in rejected_steps(save_dir)
+
+
+def mark_rejected(save_dir: str, step: int, reason: str) -> bool:
+    """Append ``step`` to the rejection ledger (one JSON line an entry).
+    Exactly once: False without writing when the step is already there.
+    A torn tail line (a crashed append) is skipped by the reader, and the
+    next append starts on a fresh line."""
+    step = int(step)
+    if is_rejected(save_dir, step):
+        return False
+    record = json.dumps({"step": step, "reason": str(reason)}, sort_keys=True)
+    path = _rejected_path(save_dir)
+    prefix = ""
+    try:
+        with open(path, "rb") as f:
+            f.seek(-1, os.SEEK_END)
+            if f.read(1) != b"\n":
+                prefix = "\n"
+    except (OSError, ValueError):
+        pass
+    with open(path, "a") as f:
+        f.write(prefix + record + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+    return True
 
 
 def apply_retention(save_dir: str, keep: int) -> List[str]:

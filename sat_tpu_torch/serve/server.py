@@ -5,22 +5,36 @@ park on an Event while the batcher owns the device.
 
 Endpoints:
 
-* ``POST /caption`` — body: image bytes (JPEG/PNG).  200 →
-  ``{"captions": [{"caption", "log_prob", "prob"}, ...beam-ordered],
-  "bucket", "slot", "model_step", "request_id"}``, the JAX server's
-  payload (``bucket`` is the page width in continuous mode).  400 for an
-  empty or undecodable body, 429 when the queue is full, 500 when the
-  batch wedged, 503 while draining, 504 past the deadline
-  (``X-Deadline-Ms`` or ``serve_deadline_ms``).
+* ``POST /caption`` — body: image bytes (JPEG/PNG), or a context grid
+  framed by ``serve.handoff`` (``Content-Type: application/x-sat-grid``,
+  the decode tier).  200 → ``{"captions": [{"caption", "log_prob",
+  "prob"}, ...beam-ordered], "bucket", "slot", "model_step",
+  "request_id"}`` (plus ``tenant`` and ``model`` under ``tenants``), the
+  JAX server's payload (``bucket`` is the page width in continuous
+  mode).  400 for an empty or undecodable body, a bad frame or an unknown
+  ``X-Model``; 409 for a grid encoded at another model step; 429 when the
+  queue (or the tenant's lane or quota) is full; 500 when the batch
+  wedged; 503 while draining; 504 past the deadline (``X-Deadline-Ms`` or
+  ``serve_deadline_ms``).  ``X-Tenant`` picks the tenant, ``X-Model`` a
+  resident model; each 429/503 carries ``Retry-After`` and
+  ``X-Shed-Scope: tenant|global``.
+* ``POST /encode`` — image bytes → the framed ``[N, D]`` context grid
+  (``application/x-sat-grid``) a decode tier captions.
+* ``POST /reload``, ``/promote``, ``/rollback`` — the model lifecycle:
+  200 or 409 with ``{"ok", "detail", "state", "model_step"}``.
+* ``GET /quality_reference`` — the frozen quality reference (200), 409
+  before one froze, 404 with the quality plane off.
 * ``GET /healthz`` — readiness plus the heartbeat payload: 200 "ok",
   503 "degraded" (a wedged batch being re-warmed, or a burning SLO),
   "draining" or "stopped".  The top-level load signals a router polls:
-  ``queue_depth``, ``in_flight``, ``serve_mode``, ``tier``, ``buckets``.
+  ``queue_depth``, ``in_flight``, ``serve_mode``, ``tier``, ``buckets``,
+  ``lifecycle_state`` (and ``candidate_step``, ``tenants``).
 * ``GET /stats`` — queue depth, bucket histogram, the ``serve/``
   counters, p50/p95/p99 per serve span, the SLO verdicts, profile
-  captures, per-tenant cost and the capacity gauges; ``fused_attend``
-  launches and the device (port only); in continuous mode a
-  ``slot_pool`` block.
+  captures, per-tenant cost, the capacity gauges and the ``lifecycle``
+  block; ``encode_cache``, ``tenants`` and ``quality`` blocks when those
+  planes are on; ``fused_attend`` launches and the device (port only);
+  in continuous mode a ``slot_pool`` block.
 * ``GET /metrics`` — Prometheus text (``telemetry.promtext``).
 * ``POST /profile?duration_ms=N`` — a bounded live ``torch.profiler``
   capture into ``<telemetry_dir>/profiles/<ts>/``; 409 while another
@@ -42,6 +56,12 @@ counterpart: nothing is compiled ahead here.
 (:class:`MicroBatcher`); ``"continuous"`` seeds requests into a
 :class:`PagedSlotPool` between fused decode windows
 (:class:`ContinuousBatcher`).
+
+The lifecycle controller is built at every config, as the JAX server's
+is, so the admin endpoints answer at the defaults; its poller starts
+only with ``model_reload > 0``.  Tenants (``tenants``) add quotas
+checked before preprocessing, weighted lanes, ``tenant_*`` SLO lanes and
+resident models loaded at boot through the lifecycle loader.
 
 Shutdown: SIGTERM/SIGINT (through ``resilience.preempt.GracefulShutdown``)
 or ``request_shutdown()`` flips readiness, drains the batcher, closes the
@@ -66,17 +86,25 @@ import numpy as np
 from .. import telemetry
 from ..config import Config
 from ..data.vocabulary import Vocabulary
+from ..lifecycle import LifecycleController
+from ..lifecycle import canary as canary_mod
+from ..lifecycle.loader import load_candidate
 from ..ops.fused_attend import fused_attend
 from ..resilience.preempt import GracefulShutdown
 from ..telemetry import promtext, tracectx
 from ..telemetry.capacity import CapacityModel, EncodeCacheSketch
+from ..telemetry.exemplar import ExemplarRecorder
 from ..telemetry.heartbeat import Heartbeat
 from ..telemetry.metering import MeteringLedger
 from ..telemetry.profwin import ProfileLatch
+from ..telemetry.quality import QualityMonitor, QualityReference
 from ..telemetry.slo import SLOEngine, objectives_from_config
+from ..utils.summary import crc32c
+from . import handoff
 from .batcher import ContinuousBatcher, MicroBatcher, Rejected
-from .engine import ServeEngine, check_ported, load_serving_state
+from .engine import ServeEngine, load_serving_state
 from .slot_pool import PagedSlotPool
+from .tenants import TenantRegistry
 
 _LATENCY_SPANS = (
     "serve/request",
@@ -103,10 +131,6 @@ _HISTOGRAMS: Dict[str, promtext.HistogramSpec] = {
         1.0,
     ),
 }
-
-# the one param slot until the lifecycle plane is ported
-_INCUMBENT = "incumbent"
-
 
 def telemetry_dir(config: Config) -> str:
     return config.telemetry_dir or os.path.join(config.summary_dir, "telemetry")
@@ -173,6 +197,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(200, app.stats(), rid)
         elif route == "/metrics":
             self._send(200, app.metrics_text().encode(), promtext.CONTENT_TYPE, rid)
+        elif route == "/quality_reference":
+            payload, status = app.quality_reference()
+            self._reply(status, payload, rid)
         else:
             self._reply(404, {"error": f"no route {self.path}"}, rid)
 
@@ -180,6 +207,10 @@ class _Handler(BaseHTTPRequestHandler):
         app = self.server.app
         rid = self._request_id()
         route, _, query = self.path.partition("?")
+        if route in ("/reload", "/promote", "/rollback"):
+            status, payload = app.admin_lifecycle(route[1:])
+            self._reply(status, payload, rid)
+            return
         if route == "/profile":
             params = urllib.parse.parse_qs(query)
             try:
@@ -193,7 +224,7 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._reply(409 if "in progress" in info else 503, {"error": info}, rid)
             return
-        if route != "/caption":
+        if route not in ("/caption", "/encode"):
             self._reply(404, {"error": f"no route {self.path}"}, rid)
             return
         try:
@@ -204,8 +235,15 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "empty body; POST image bytes"}, rid)
             return
         body = self.rfile.read(length)
+        if route == "/encode":
+            # the encode tier: image bytes in, a framed context grid out
+            status, out_body, ctype = app.handle_encode(body)
+            self._send(status, out_body, ctype, rid)
+            return
         status, payload = app.handle_caption(
-            body, deadline_ms=self.headers.get("X-Deadline-Ms"), request_id=rid
+            body, deadline_ms=self.headers.get("X-Deadline-Ms"), request_id=rid,
+            tenant=self.headers.get("X-Tenant"), model=self.headers.get("X-Model"),
+            content_type=self.headers.get("Content-Type"),
         )
         headers = None
         if status in (429, 503) and "retry_after_ms" in payload:
@@ -241,6 +279,38 @@ class CaptionServer:
         self.config = config
         self.engine = engine
         self._tel = telemetry.get()
+        # the tenant plane: X-Tenant → quota, scheduling weight, resident
+        # model, SLO lane.  An empty spec is the single-tenant registry
+        # (multi=False): no quotas, one lane, no per-tenant counters.
+        self.tenants = TenantRegistry.parse(config.tenants)
+        self._load_residents()
+        weights = self.tenants.weights() if self.tenants.multi else None
+        tdir = telemetry_dir(config)
+        # the quality plane: streaming signal sketches and drift against a
+        # frozen reference, and the exemplar recorder for outliers
+        self.quality: Optional[QualityMonitor] = None
+        self.exemplars: Optional[ExemplarRecorder] = None
+        if config.serve_quality == "on":
+            reference = None
+            if config.serve_quality_reference:
+                reference = QualityReference.load(config.serve_quality_reference)
+            self.quality = QualityMonitor(
+                window=config.serve_quality_window, reference=reference,
+                margin_min=config.serve_quality_margin_min, unk_max=config.serve_quality_unk_max,
+                tel=self._tel,
+            )
+            self.exemplars = ExemplarRecorder(
+                config.serve_quality_exemplar_dir or os.path.join(tdir, "exemplars"),
+                budget_mb=config.serve_quality_exemplar_mb,
+            )
+            # replay context: a replay boots from this meta
+            self.exemplars.write_meta(
+                {
+                    "config": config.to_dict(),
+                    "model_step": engine.step,
+                    "vocab_crc32c": f"{crc32c(chr(10).join(engine.vocabulary.words).encode('utf-8')):08x}",
+                }
+            )
         self.pool: Optional[PagedSlotPool] = None
         if config.serve_mode == "continuous":
             self.pool = PagedSlotPool(
@@ -249,12 +319,14 @@ class CaptionServer:
             self.batcher = ContinuousBatcher(
                 engine, pool=self.pool, queue_depth=config.serve_queue_depth, tel=self._tel,
                 on_wedge=self._on_wedge, wedge_timeout_ms=config.serve_wedge_timeout_ms,
+                weights=weights, quality=self.quality, exemplars=self.exemplars,
             )
         else:
             self.batcher = MicroBatcher(
                 engine, max_batch=config.serve_max_batch, max_wait_ms=config.serve_max_wait_ms,
                 queue_depth=config.serve_queue_depth, tel=self._tel,
                 on_wedge=self._on_wedge, wedge_timeout_ms=config.serve_wedge_timeout_ms,
+                weights=weights, quality=self.quality, exemplars=self.exemplars,
             )
         self._host = host if host is not None else config.serve_host
         self._requested_port = port if port is not None else config.serve_port
@@ -271,7 +343,6 @@ class CaptionServer:
         self._degraded = False
         self._t_start = time.time()
         self.heartbeat: Optional[Heartbeat] = None
-        tdir = telemetry_dir(config)
         cap_bytes = int(config.telemetry_log_cap_mb * 1e6)
         self.tracer = tracectx.RequestTracer(path=os.path.join(tdir, "access.jsonl"), cap_bytes=cap_bytes)
         self.profiles = ProfileLatch(tdir, device=engine.device)
@@ -290,13 +361,38 @@ class CaptionServer:
                 # decode seats: pool slots, or the largest bucket in batch mode
                 slots=self.pool.slots if self.pool is not None else max(engine.buckets),
                 sketch=self._cache_sketch,
-                cache=None,  # the encode cache is not ported
+                # the real cache, when on: its hit ratio beside the sketch's
+                cache=engine.encode_cache,
             )
         self.slo = SLOEngine(
-            self._tel, objectives_from_config(config, "serve"),
+            self._tel,
+            objectives_from_config(
+                config, "serve",
+                tenants=self.tenants.slo_lanes(config.slo_serve_p99_ms, config.slo_error_ratio),
+            ),
             jsonl_path=os.path.join(tdir, "slo.jsonl"), cap_bytes=cap_bytes,
             fast_s=config.slo_window_fast_s, slow_s=config.slo_window_slow_s,
         )
+        # the model lifecycle: built at every config, so /reload, /promote
+        # and /rollback answer; its poller starts only with model_reload > 0
+        self.lifecycle = LifecycleController(config, engine, self.batcher, tel=self._tel)
+
+    def _load_residents(self) -> None:
+        """Load every resident model the tenant spec names through the
+        lifecycle loader (integrity, vocabulary and full-coverage guards),
+        each checked against the incumbent.  A resident that fails is a
+        boot error: a tenant pointed at a model that cannot serve must
+        not fall back to the incumbent."""
+        for alias, path in sorted(self.tenants.models.items()):
+            staged = load_candidate(self.engine, self.config, path)
+            self.engine.install_resident(
+                alias, staged["variables"], staged["decoder_params"], staged["step"], staged["source"]
+            )
+            print(
+                f"sat_tpu_torch: resident model {alias!r} loaded from {path} (step {staged['step']})",
+                file=sys.stderr,
+                flush=True,
+            )
 
     @property
     def port(self) -> Optional[int]:
@@ -314,11 +410,13 @@ class CaptionServer:
     # -- request handlers (HTTP worker threads) ----------------------------
 
     def _finish_request(
-        self, trace, status: int, payload: Dict[str, Any], bucket: Optional[int] = None, cost=None
+        self, trace, status: int, payload: Dict[str, Any], bucket: Optional[int] = None,
+        slot: str = canary_mod.INCUMBENT, tenant: Optional[str] = None, cost=None,
     ) -> Tuple[int, Dict[str, Any]]:
         """Every terminal /caption reply funnels through here: the access
-        log gets its record, the SLO error-ratio counters tick, the
-        request's attributed cost is charged, and the payload learns its
+        log gets its record, the SLO error-ratio counters tick (the
+        tenant's and the canary's lanes too), the request's attributed
+        cost is charged to its tenant, and the payload learns its
         request id."""
         total_ns = time.perf_counter_ns() - trace.t_start_ns
         with self._in_flight_lock:
@@ -326,94 +424,259 @@ class CaptionServer:
         self._tel.count("serve/http_requests")
         if status >= 500:
             self._tel.count("serve/http_5xx")
+        if tenant is not None and self.tenants.multi:
+            # the tenant's own SLO lane: its latency span and counters
+            self._tel.count(f"serve/tenant_{tenant}_requests")
+            if status >= 500:
+                self._tel.count(f"serve/tenant_{tenant}_5xx")
+            if status == 429:
+                self._tel.count(f"serve/tenant_{tenant}_429")
+            self._tel.record(f"serve/tenant_{tenant}_request", trace.t_start_ns, total_ns)
+        if slot == canary_mod.CANARY:
+            # the canary SLO engine scores canary-slot traffic alone
+            self._tel.count("serve/canary_requests")
+            if status >= 500:
+                self._tel.count("serve/canary_5xx")
+            self._tel.record("serve/canary_request", trace.t_start_ns, total_ns)
         if self.metering is not None:
             # host phases lift off the trace; device phases arrive on cost
             phases = trace.phases
             self.metering.charge(
-                "default", cost=cost,
+                tenant if tenant is not None else "default", cost=cost,
                 queue_ms=phases.get("queue_wait", (0, 0))[1] / 1e6,
                 detok_ms=phases.get("detok", (0, 0))[1] / 1e6,
                 error=status >= 500,
             )
         if self.capacity is not None:
             self.capacity.maybe_update()  # rate-limited
-        self.tracer.finish(trace, status, total_ns, bucket=bucket, error=payload.get("error"), cost=cost)
+        self.tracer.finish(
+            trace, status, total_ns, bucket=bucket, error=payload.get("error"), tenant=tenant, cost=cost
+        )
         payload["request_id"] = trace.trace_id
         return status, payload
 
+    def handle_encode(self, body: bytes) -> Tuple[int, bytes, str]:
+        """``POST /encode``, the encode tier's request path: image bytes →
+        a framed context grid (``serve.handoff``) a decode tier captions.
+        Stateless: no slot, no queue.  Runs on the HTTP thread, which takes
+        the engine's device and inference mode for the encode."""
+        t0 = time.perf_counter_ns()
+
+        def _err(status: int, payload: Dict[str, Any]):
+            return status, json.dumps(payload).encode(), "application/json"
+
+        if not self._ready:
+            return _err(503, {"error": "server is draining; not accepting work"})
+        try:
+            image = self.engine.preprocess(body)
+        except Exception as e:
+            self._tel.count("serve/bad_input")
+            return _err(400, {"error": "bad image", "detail": f"cannot decode image bytes: {e}"})
+        try:
+            grid = self.engine.encode_one(image)
+        except Exception as e:
+            self._tel.count("serve/encode_http_errors")
+            return _err(500, {"error": f"encode failed: {e}"})
+        self._tel.count("serve/encode_http")
+        self._tel.record("serve/encode_request", t0, time.perf_counter_ns() - t0)
+        return 200, handoff.encode_grid(grid, step=self.engine.step), handoff.GRID_CONTENT_TYPE
+
     def handle_caption(
-        self, body: bytes, deadline_ms=None, request_id: Optional[str] = None
+        self, body: bytes, deadline_ms=None, request_id: Optional[str] = None,
+        tenant: Optional[str] = None, model: Optional[str] = None, content_type: Optional[str] = None,
     ) -> Tuple[int, Dict[str, Any]]:
         t_req0 = time.perf_counter_ns()
         trace = self.tracer.begin(request_id)
         trace.t_start_ns = t_req0
         with self._in_flight_lock:
             self._in_flight += 1  # paired decrement in _finish_request
+        # X-Tenant → the tenant's spec (bare and unknown keys map to the
+        # default tenant); tname is None on the single-tenant registry
+        spec = self.tenants.resolve(tenant)
+        tname = spec.name if self.tenants.multi else None
+        if tenant and tname is not None and not self.tenants.known(tenant):
+            self._tel.count("serve/tenant_unknown")
         if not self._ready:
-            return self._finish_request(trace, 503, self._shed({"error": "server is draining; not accepting work"}))
-        try:
-            image = self.engine.preprocess(body)
-        except ValueError as e:
-            # undecodable body: a client problem, counted
-            self._tel.count("serve/bad_input")
             return self._finish_request(
-                trace, 400, {"error": "bad image", "detail": f"cannot decode image bytes: {e}"}
+                trace, 503,
+                {"error": "server is draining; not accepting work",
+                 "retry_after_ms": self._retry_hint_ms(), "shed_scope": "global"},
+                tenant=tname,
             )
-        if self._cache_sketch is not None:
-            # would-be encode-cache probe over the raw POST bytes.  The JAX
-            # server keys it by crc32c; utils.summary.crc32c holds the GIL
-            # ~11 ms over a 60 KB JPEG, which serialized a 32-request burst
-            # by ~0.35 s on the H100's host, so the key here is zlib's
-            # crc32 (C, ~40 us): the same membership, the same hit ratio
-            self._cache_sketch.observe(zlib.crc32(body))
+        # the tenant's token bucket, checked before preprocessing: a dry
+        # bucket is a tenant-scoped 429 whose hint is its own refill time
+        if tname is not None and not self.tenants.try_admit(spec.name):
+            self._tel.count("serve/shed")
+            self._tel.count(f"serve/tenant_{spec.name}_shed")
+            return self._finish_request(
+                trace, 429,
+                {"error": f"tenant {spec.name!r} admission quota exhausted ({spec.rps:g} rps); shed",
+                 "retry_after_ms": self._tenant_retry_ms(spec.name), "shed_scope": "tenant"},
+                tenant=tname,
+            )
+        image = context = key = None
+        if (content_type or "").split(";", 1)[0].strip() == handoff.GRID_CONTENT_TYPE:
+            # decode-tier ingress: a pre-encoded grid from an encode tier;
+            # its frame (crc32c) and shape are checked before device work
+            try:
+                grid, header = handoff.decode_grid(body)
+                if self.engine.ctx_row_shape is None:
+                    raise handoff.HandoffError("replica has no warmed context aval yet")
+                handoff.check_aval(grid, self.engine.ctx_row_shape, self.engine.ctx_row_dtype)
+            except handoff.HandoffError as e:
+                self._tel.count("serve/bad_handoff")
+                return self._finish_request(trace, 400, {"error": "bad grid", "detail": str(e)}, tenant=tname)
+            gstep = header.get("step")
+            if gstep is not None and int(gstep) != self.engine.step:
+                # the encoder ran another promote generation than this one
+                self._tel.count("serve/stale_handoff")
+                return self._finish_request(
+                    trace, 409,
+                    {"error": f"grid encoded at model step {gstep}; this replica serves step {self.engine.step}"},
+                    tenant=tname,
+                )
+            context = grid
+            self._tel.count("serve/grid_requests")
+        else:
+            try:
+                image = self.engine.preprocess(body)
+            except ValueError as e:
+                # undecodable body: a client problem, counted
+                self._tel.count("serve/bad_input")
+                return self._finish_request(
+                    trace, 400, {"error": "bad image", "detail": f"cannot decode image bytes: {e}"}, tenant=tname
+                )
+            if self._cache_sketch is not None:
+                # would-be encode-cache probe over the raw POST bytes.  The JAX
+                # server keys it by crc32c; utils.summary.crc32c holds the GIL
+                # ~11 ms over a 60 KB JPEG, which serialized a 32-request burst
+                # by ~0.35 s on the H100's host, so the key here is zlib's
+                # crc32 (C, ~40 us): the same membership, the same hit ratio
+                self._cache_sketch.observe(zlib.crc32(body))
+            if self.engine.encode_cache is not None:
+                # the real cache's content key: the preprocessed pixels.  The
+                # JAX server takes crc32c of them; the key never leaves the
+                # process, so zlib's crc32 keys the same rows without holding
+                # the GIL for the ~13 ms crc32c takes over a 150 KB row
+                key = zlib.crc32(image.tobytes())
         if deadline_ms is None or deadline_ms == "":
             budget_ms = self.config.serve_deadline_ms
         else:
             try:
                 budget_ms = int(deadline_ms)
             except (TypeError, ValueError):
-                return self._finish_request(trace, 400, {"error": "X-Deadline-Ms must be integer milliseconds"})
+                return self._finish_request(
+                    trace, 400, {"error": "X-Deadline-Ms must be integer milliseconds"}, tenant=tname
+                )
         deadline_unix = time.time() + budget_ms / 1e3 if budget_ms > 0 else None
+        # the param slot: an explicit X-Model (or the tenant's model) pins a
+        # resident set; otherwise the lifecycle's sticky canary hash decides
+        alias = (model or "").strip() or spec.model
+        if alias:
+            if not self.engine.has_resident(alias):
+                return self._finish_request(
+                    trace, 400,
+                    {"error": f"unknown model {alias!r}", "models": list(self.engine.resident_aliases)},
+                    tenant=tname,
+                )
+            slot = alias
+        else:
+            slot = self.lifecycle.route(trace.trace_id)
         try:
-            req = self.batcher.submit(image, deadline_unix=deadline_unix, trace=trace)
+            req = self.batcher.submit(
+                image, deadline_unix=deadline_unix, trace=trace, slot=slot, tenant=spec.name,
+                raw=body, key=key, context=context,
+            )
         except Rejected as e:
+            # a refused request leaves replayable evidence with quality on
+            self._record_terminal_exemplar(trace, e.status, "shed", tname, body)
             payload = {"error": e.reason}
-            return self._finish_request(trace, e.status, self._shed(payload) if e.status in (429, 503) else payload)
+            if e.status in (429, 503):
+                payload["shed_scope"] = e.scope
+                payload["retry_after_ms"] = (
+                    self._tenant_retry_ms(spec.name) if e.scope == "tenant" else self._retry_hint_ms()
+                )
+            return self._finish_request(trace, e.status, payload, slot=slot, tenant=tname)
         wait_s = budget_ms / 1e3 + 5.0 if deadline_unix else self.DEFAULT_WAIT_S
         if not req.done.wait(timeout=wait_s):
             self._tel.count("serve/timeouts")
+            self._record_terminal_exemplar(trace, 504, "timeout", tname, body)
             # abandoned work is still charged what it accrued
-            return self._finish_request(trace, 504, {"error": "request timed out in service"}, cost=req.cost)
+            return self._finish_request(
+                trace, 504, {"error": "request timed out in service"}, slot=slot, tenant=tname, cost=req.cost
+            )
         if req.error is not None:
             payload = {"error": req.error[1]}
             if req.error[0] in (429, 503):
-                payload = self._shed(payload)
-            return self._finish_request(trace, req.error[0], payload, bucket=req.bucket, cost=req.cost)
+                payload["retry_after_ms"] = self._retry_hint_ms()
+                payload["shed_scope"] = "global"
+            return self._finish_request(
+                trace, req.error[0], payload, bucket=req.bucket, slot=slot, tenant=tname, cost=req.cost
+            )
         self._tel.record("serve/request", t_req0, time.perf_counter_ns() - t_req0)
         payload = dict(req.result)
         payload["bucket"] = req.bucket
-        payload["slot"] = _INCUMBENT
-        payload["model_step"] = self.engine.step
-        return self._finish_request(trace, 200, payload, bucket=req.bucket, cost=req.cost)
+        payload["slot"] = slot
+        if tname is not None:
+            payload["tenant"] = tname
+        if slot == canary_mod.CANARY:
+            step = self.engine.candidate_step
+            payload["model_step"] = step if step is not None else self.engine.step
+        elif alias:
+            payload["model"] = alias
+            step = self.engine.resident_step(alias)
+            payload["model_step"] = step if step is not None else self.engine.step
+        else:
+            payload["model_step"] = self.engine.step
+            # during a canary window a sample of incumbent answers is
+            # replayed on the candidate for the divergence gauge (bounded
+            # queue; a grid request has no image to replay)
+            if image is not None:
+                try:
+                    self.lifecycle.maybe_shadow(image, payload["captions"][0]["caption"])
+                except (KeyError, IndexError, TypeError):
+                    pass
+        return self._finish_request(
+            trace, 200, payload, bucket=req.bucket, slot=slot, tenant=tname, cost=req.cost
+        )
 
-    def _shed(self, payload: Dict[str, Any]) -> Dict[str, Any]:
-        """A 429/503 payload with the backoff hint: about one service
-        period (the observed p50 request latency, else twice the batching
-        window), clamped to 50 ms-10 s.  The scope is always the
-        service's until the tenant plane is ported."""
+    def _record_terminal_exemplar(self, trace, status: int, reason: str, tenant: Optional[str],
+                                  body: bytes) -> None:
+        """Shed and timed-out requests never reach the detok boundary, so
+        the HTTP path records them (rate-limited by the recorder; a
+        failure is counted and swallowed)."""
+        if self.exemplars is None:
+            return
+        try:
+            self.exemplars.record(
+                reasons=[reason], request_id=trace.trace_id, tenant=tenant or "default",
+                status=status, image_bytes=body,
+            )
+        except Exception:
+            self._tel.count("serve/quality_errors")
+
+    def _retry_hint_ms(self) -> int:
+        """The backoff hint of a global 429/503: about one service period
+        (the observed p50 request latency, else twice the batching
+        window), clamped to 50 ms-10 s."""
         p = _percentiles_ms(self._tel, "serve/request")
         hint = p["p50"] if p else 2.0 * max(1.0, self.config.serve_max_wait_ms)
-        payload["retry_after_ms"] = int(min(10_000.0, max(50.0, hint)))
-        payload["shed_scope"] = "global"
-        return payload
+        return int(min(10_000.0, max(50.0, hint)))
+
+    def _tenant_retry_ms(self, name: str) -> int:
+        """The backoff hint of a tenant-scoped shed: that tenant's bucket
+        refill time, never 0."""
+        return max(1, int(self.tenants.retry_after_s(name) * 1000.0) + 1)
 
     def healthz(self) -> Tuple[Dict[str, Any], int]:
         payload = self.heartbeat.payload() if self.heartbeat else {}
         # two degrade causes: a wedged batch being re-warmed, and a
-        # burning SLO; both flip the balancer-facing health while
-        # requests are still admitted
+        # burning service SLO.  Tenant and quality lanes are diagnostic:
+        # routing traffic away fixes neither a tenant's own flood nor a
+        # model's drift, so they stay out of the health verdict.
         burning = self.slo.burning()
-        degraded = self._degraded or bool(burning)
+        service_burning = [n for n in burning if not n.startswith(("tenant_", "quality_"))]
+        degraded = self._degraded or bool(service_burning)
         if degraded:
             status = "degraded"
         elif self._ready:
@@ -431,11 +694,31 @@ class CaptionServer:
                 "tier": self.config.serve_tier,
                 "buckets": list(self.engine.buckets),
                 "model_step": self.engine.step,
+                "lifecycle_state": self.lifecycle.state,
             }
         )
+        candidate = self.engine.candidate_step
+        if candidate is not None:
+            payload["candidate_step"] = candidate
+        if self.tenants.multi:
+            payload["tenants"] = sorted(self.tenants.names())
         if burning:
             payload["slo_burning"] = burning
         return payload, (200 if self._ready and not degraded else 503)
+
+    def admin_lifecycle(self, action: str) -> Tuple[int, Dict[str, Any]]:
+        """``POST /reload | /promote | /rollback``: 200 on success, 409 when
+        the machine is in the wrong state for the verb."""
+        lc = self.lifecycle
+        if action == "reload":
+            ok, detail = lc.request_reload()
+        elif action == "promote":
+            ok, detail = lc.promote()
+        elif action == "rollback":
+            ok, detail = lc.rollback()
+        else:
+            return 404, {"error": f"no lifecycle action {action!r}"}
+        return (200 if ok else 409), {"ok": ok, "detail": detail, "state": lc.state, "model_step": self.engine.step}
 
     # -- wedge containment (called from the batcher thread) ----------------
 
@@ -490,6 +773,7 @@ class CaptionServer:
             "latency_ms": latency,
             "slo": self.slo.snapshot(),
             "profile_captures": self.profiles.captures,
+            "lifecycle": self.lifecycle.snapshot(),
             "device": str(self.engine.device),
             "kernels": {"fused_attend": {
                 "launches": fused_attend.launches,
@@ -529,8 +813,18 @@ class CaptionServer:
                     str(k): counters.get(f"serve/dispatch_k{k}", 0) for k in self.pool.decode_depths
                 },
             }
+        if self.engine.encode_cache is not None:
+            # host LRU state and lifetime counters, and what a hit costs
+            # on the device (the gather) beside the encode it skipped
+            cache_block = self.engine.encode_cache.stats()
+            gp = _percentiles_ms(self._tel, "serve/cache_gather")
+            if gp:
+                cache_block["gather_ms"] = gp
+            out["encode_cache"] = cache_block
+        if self.tenants.multi:
+            out["tenants"] = self._tenant_block(counters)
         if self.metering is not None:
-            # per-tenant attributed cost: one "default" row until tenants
+            # per-tenant attributed cost (one "default" row single-tenant)
             out["tenants_cost"] = self.metering.snapshot()
         if self.capacity is not None:
             self.capacity.maybe_update()
@@ -539,7 +833,46 @@ class CaptionServer:
                 for name, value in self._tel.gauges().items()
                 if name.startswith("capacity/")
             }
+        if self.quality is not None:
+            self.quality.maybe_publish(force=True)
+            qblock = self.quality.snapshot()
+            if self.exemplars is not None:
+                qblock["exemplars"] = self.exemplars.stats()
+            out["quality"] = qblock
         return out
+
+    def _tenant_block(self, counters: Dict[str, Any]) -> Dict[str, Any]:
+        """The /stats tenants block: each tenant's weight, quota and model,
+        its queue depth, token balance, request/shed/5xx counters and
+        latency percentiles; refreshes the ``serve/tenant_*`` gauges so the
+        heartbeat and /metrics carry the same numbers."""
+        depths = self.batcher.tenant_depths()
+        admitted = self.batcher.tenant_admitted()
+        block: Dict[str, Any] = {}
+        for name, shape in self.tenants.describe().items():
+            entry = dict(shape)
+            entry["queue_depth"] = depths.get(name, 0)
+            entry["admitted"] = admitted.get(name, 0)
+            tokens = self.tenants.tokens(name)
+            if tokens is not None and tokens != float("inf"):
+                entry["tokens"] = round(tokens, 2)
+                self._tel.gauge(f"serve/tenant_{name}_tokens", round(tokens, 2))
+            self._tel.gauge(f"serve/tenant_{name}_queue_depth", depths.get(name, 0))
+            for short, counter in (
+                ("requests", f"serve/tenant_{name}_requests"),
+                ("shed", f"serve/tenant_{name}_shed"),
+                ("429", f"serve/tenant_{name}_429"),
+                ("5xx", f"serve/tenant_{name}_5xx"),
+            ):
+                entry[short] = counters.get(counter, 0)
+            step = self.engine.resident_step(shape["model"]) if shape["model"] else None
+            if step is not None:
+                entry["model_step"] = step
+            p = _percentiles_ms(self._tel, f"serve/tenant_{name}_request")
+            if p:
+                entry["latency_ms"] = p
+            block[name] = entry
+        return block
 
     def _encode_lanes(self):
         """Every encode width this server can have timed: the buckets
@@ -567,10 +900,39 @@ class CaptionServer:
         if enc:
             self._tel.gauge("serve/encode_ms", enc["p50"])
             self._tel.gauge("serve/encode_ms_p95", enc["p95"])
+        if self.tenants.multi:
+            self._tenant_block(self._tel.counters())
+        if self.engine.encode_cache is not None:
+            # scrape-time refresh of the cache's residency gauges
+            cstats = self.engine.encode_cache.stats()
+            self._tel.gauge("serve/cache_entries", cstats["entries"])
+            self._tel.gauge("serve/cache_bytes", cstats["bytes"])
+            self._tel.gauge("serve/cache_hit_ratio", cstats["hit_ratio"])
+            gp = _percentiles_ms(self._tel, "serve/cache_gather")
+            if gp:
+                self._tel.gauge("serve/cache_gather_ms_p95", gp["p95"])
         if self.capacity is not None:
             self.capacity.maybe_update()
+        if self.quality is not None:
+            self.quality.maybe_publish(force=True)
         extra = self.heartbeat.payload() if self.heartbeat else None
         return promtext.render(self._tel, extra=extra, histograms=_HISTOGRAMS)
+
+    def quality_reference(self) -> Tuple[Dict[str, Any], int]:
+        """``GET /quality_reference``: the frozen reference, for another
+        replica's ``--quality_reference``; 404 with the quality plane off,
+        409 before a reference froze."""
+        if self.quality is None:
+            return {"error": "quality plane off; boot with --serve_quality on"}, 404
+        payload = self.quality.reference_payload()
+        if payload is None:
+            return {
+                "error": (
+                    f"no reference frozen yet; serve at least {self.quality.window} requests "
+                    "or load one with --quality_reference"
+                )
+            }, 409
+        return payload, 200
 
     def start_profile(self, duration_ms=None) -> Tuple[bool, str]:
         """Begin a bounded live profiler capture (``POST /profile``)."""
@@ -625,6 +987,11 @@ class CaptionServer:
         if self.slo.objectives:
             # tick a few times per fast window so a burn is seen promptly
             self.slo.start(interval_s=max(0.1, min(5.0, self.config.slo_window_fast_s / 4)))
+        self.lifecycle.start()
+        if self.config.serve_tier == "encode":
+            # an encode tier's whole request path is POST /encode: its
+            # width-1 encode runs once before ready
+            self.engine.warm_encode_one()
         self._ready = True
         self._tel.gauge("serve/ready", 1)
         return self
@@ -641,6 +1008,9 @@ class CaptionServer:
             return
         self._ready = False
         self._tel.gauge("serve/ready", 0)
+        # an in-flight canary aborts first (shutdown is not a verdict), so
+        # the drain sees only real work
+        self.lifecycle.stop()
         self.batcher.drain()
         self._httpd.shutdown()
         if self._http_thread is not None:
@@ -680,8 +1050,7 @@ def serve(config: Config, model_file: Optional[str] = None, device=None) -> int:
     Lineage load → warm every bucket (batch mode) or the slot pool
     (continuous mode) → listen → drain on SIGTERM/SIGINT.  Telemetry is
     always on in this phase (``/stats``, ``/metrics`` and the logs read
-    it).  A knob not ported yet raises before anything loads."""
-    check_ported(config)
+    it)."""
     tel = telemetry.get()
     if not tel.enabled:
         tel = telemetry.enable(capacity=config.telemetry_buffer)
@@ -727,6 +1096,17 @@ def serve(config: Config, model_file: Optional[str] = None, device=None) -> int:
             file=sys.stderr,
             flush=True,
         )
+        if server.tenants.multi:
+            shapes = ", ".join(
+                f"{s.name}(w={s.weight:g}" + (f", {s.rps:g}rps" if s.limited else "")
+                + (f", model={s.model}" if s.model else "") + ")"
+                for s in server.tenants.specs()
+            )
+            print(
+                f"sat_tpu_torch: multi-tenant plane active — {shapes}; default tenant {server.tenants.default!r}",
+                file=sys.stderr,
+                flush=True,
+            )
         try:
             server.serve_until_shutdown(shutdown)
         except Exception as e:

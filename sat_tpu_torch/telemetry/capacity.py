@@ -9,10 +9,11 @@ geometry), it answers two questions no raw counter does:
   captions/s ceiling is ``slots / mean_occupancy_s`` at the current
   traffic mix; headroom is the unused fraction of slot capacity, and the
   SLO engine can burn on it (the ``capacity_headroom`` objective).
-* **Would an encode cache pay for itself?**  A crc32c-keyed sliding
-  sketch measures the would-be hit ratio of a bounded encode cache on
-  live traffic; no pixels are retained.  The real cache is not ported,
-  so the server passes ``cache=None``.
+* **Would an encode cache pay for itself?**  A keyed sliding sketch
+  measures the would-be hit ratio of a bounded encode cache on live
+  traffic; no pixels are retained.  With ``encode_cache="on"`` the
+  server passes the real cache, whose measured hit ratio is published
+  beside the sketch's prediction.
 
 Everything here is host arithmetic over numbers already collected:
 ``maybe_update`` is rate-limited (once per ``interval_s``, except the

@@ -372,12 +372,18 @@ def test_bulk_over_the_shard_cache_writes_the_same_bytes(world, bulk, monkeypatc
     assert outputs(config.bulk_output) == outputs(world["port"].bulk_output)
 
 
-def test_run_bulk_refusals(world, monkeypatch):
+def test_run_bulk_refusals(world, bulk, monkeypatch):
     with pytest.raises(ValueError, match="bulk_output"):
         runner.run_bulk(world["port"].replace(bulk_output=""), device="cpu")
-    for knob in ({"blackbox": True}, {"serve_quality": "on"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            runner.run_bulk(world["cfg"]("refused", **knob), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        runner.run_bulk(world["cfg"]("refused", blackbox=True), device="cpu")
+    # serve_quality is no longer refused: it acts, every row gains its
+    # quality signals
+    config = world["cfg"]("quality", serve_quality="on")
+    assert bulk(config) == 0
+    rows = [json.loads(line) for name, blob in sorted(outputs(config.bulk_output).items())
+            if name.endswith(".jsonl") for line in blob.decode().splitlines()]
+    assert rows and all(set(r["quality"]) == {"margin", "norm_logprob", "unk_rate", "coverage_dev"} for r in rows)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.run_bulk(world["cfg"]("no_card"), model_file=world["path"])

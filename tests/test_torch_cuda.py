@@ -433,3 +433,23 @@ def test_int8_conv_on_the_card_is_the_cpus(cuda, B, C, H, O, k, s):
     got = int8_conv(x.to(cuda), w.to(cuda), s).cpu()
     assert got.dtype == torch.int32
     assert torch.equal(got, int8_conv(x, w, s))
+
+
+def test_encode_cache_ring_on_the_card_is_bitwise(cuda):
+    """The encode cache's ring on the card: ``insert`` then ``gather`` give
+    the inserted rows bitwise, a lane's pad positions write only the
+    scratch row, and rows of other widths are left as they were."""
+    from sat_tpu_torch.serve.encode_cache import EncodeCache
+
+    cache = EncodeCache(1)
+    cache.ensure_store((196, 512), np.float32, min_rows=32, device=torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    first = torch.randn((32, 196, 512), device="cuda", generator=gen)
+    cache.insert(32, first, list(range(32)))
+    lane = torch.randn((4, 196, 512), device="cuda", generator=gen)
+    cache.insert(4, lane, [5])
+    got = cache.gather(16, [5, 0, 31])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], lane[0]) and torch.equal(got[1], first[0]) and torch.equal(got[2], first[31])
+    assert torch.equal(cache.gather(4, [1, 2, 3, 4]), first[1:5])
+    assert torch.equal(got[3], cache._store[cache.rows])

@@ -118,7 +118,8 @@ def test_batch_serve_captions_match_jax(world, engine, images):
     batch, bucket = engine.pad_batch(list(images))
     assert bucket == 4
     before = fused_attend.launches
-    words, lengths, scores = engine.drain_output(engine.dispatch(batch), 4)
+    words, lengths, scores, alphas = engine.drain_output(engine.dispatch(batch), 4)
+    assert alphas is None  # serve_quality off
     assert fused_attend.launches == before
     assert engine.encode_images(batch).shape == (4, 4, 2048)
     np.testing.assert_array_equal(lengths, want_lengths)
@@ -141,7 +142,7 @@ def test_continuous_serve_captions_match_jax(world, engine, images):
     got = {}
     for _ in range(4 * world["tc"].max_caption_length):
         done, _ = pool.multi_step(1)
-        payloads, words, lengths, scores, _steps = pool.harvest(done.cpu().numpy())
+        payloads, words, lengths, scores, _steps, _alphas = pool.harvest(done.cpu().numpy())
         got.update({p: (w, n, s) for p, w, n, s in zip(payloads, words, lengths, scores)})
         if len(got) == 4:
             break

@@ -94,16 +94,47 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "knob",
     [
-        {"tenants": "a:1"},  # the tenant plane is not ported: never ignored
+        {"tenants": "a:1"},  # the tenant plane: accepted and acting, never ignored
         {"encode_cache": "on"},
     ],
 )
-def test_unported_serve_knobs_raise(knob):
-    from sat_tpu_torch.serve.engine import check_ported
+def test_unported_serve_knobs_raise(knob, tmp_path):
+    """Both knobs were refused until the serve plane's model and traffic
+    planes were ported (no serve knob raises any longer); now each is
+    accepted and acts: the tenant plane's /stats block counts tenant
+    ``a``'s two requests, the encode cache's block a miss then a hit."""
+    import cv2
 
-    _, tc = configs(**knob)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        check_ported(tc)
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.data.vocabulary import Vocabulary
+    from sat_tpu_torch.serve import engine as engine_mod
+    from sat_tpu_torch.serve.server import CaptionServer
+    from tests.torch_port_helpers import port_params
+
+    assert not hasattr(engine_mod, "check_ported")
+    jc, tc = configs(serve_buckets=(1, 2), serve_max_batch=2, summary_dir=str(tmp_path), **knob)
+    _, params = port_params(jc, tc)
+    vocab = Vocabulary(tc.vocabulary_size)
+    vocab.build(["a dog runs on the grass."])
+    telemetry.enable()
+    try:
+        engine = engine_mod.ServeEngine(tc, engine_mod.ServingState(params=params, step=0), vocab, device="cpu")
+        engine.warmup()
+        server = CaptionServer(tc, engine, port=0, host="127.0.0.1").start()
+        try:
+            ok, jpeg = cv2.imencode(".jpg", np.random.default_rng(0).integers(0, 256, (32, 32, 3), dtype=np.uint8))
+            replies = [server.handle_caption(jpeg.tobytes()) for _ in range(2)]
+            stats = server.stats()
+        finally:
+            server.shutdown()
+    finally:
+        telemetry.disable()
+    assert [status for status, _ in replies] == [200, 200]
+    if "tenants" in knob:
+        assert replies[0][1]["tenant"] == "a" and stats["tenants"]["a"]["requests"] == 2
+    else:
+        assert (stats["encode_cache"]["misses"], stats["encode_cache"]["hits"]) == (1, 1)
+        assert replies[0][1]["captions"] == replies[1][1]["captions"]
 
 
 @pytest.mark.parametrize(
@@ -113,13 +144,14 @@ def test_unported_serve_knobs_raise(knob):
 )
 def test_encoder_knobs_pass_every_phase_check(knob):
     """ResNet50 and the quantized encoder run in every ported phase: no
-    serve, eval/test or train check refuses them (train, eval and test
-    encode in full precision, as the JAX package does)."""
+    eval/test or train check refuses them (train, eval and test encode in
+    full precision, as the JAX package does), and serve has no knob check
+    left."""
     from sat_tpu_torch import runtime
-    from sat_tpu_torch.serve.engine import check_ported
+    from sat_tpu_torch.serve import engine as engine_mod
 
     _, tc = configs(**knob)
-    check_ported(tc)
+    assert not hasattr(engine_mod, "check_ported")
     runtime.check_ported(tc)
     runtime.check_train_ported(tc)
 

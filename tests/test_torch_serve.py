@@ -270,7 +270,6 @@ def test_serve_writes_the_flight_recorder_and_trace_export(knob, tmp_path):
     """Both act in serve: the flight recorder journals the serve's start
     and clean drain under <telemetry_dir>/blackbox (no postmortem bundle
     on a clean exit); the trace export writes one lane a request."""
-    from sat_tpu_torch.serve.engine import check_ported
     from sat_tpu_torch.telemetry import blackbox
 
     name = next(iter(knob))
@@ -279,7 +278,6 @@ def test_serve_writes_the_flight_recorder_and_trace_export(knob, tmp_path):
     _, tc, _, _ = make_checkpoint(tmp_path, **knob)
     tdir = tmp_path / "telemetry"
     tc = tc.replace(telemetry_dir=str(tdir))
-    check_ported(tc)
     try:
         rc, status = serve_in_process(tc, until=lambda port: _post_port(port, _jpegs(1)[0])[0])
     finally:

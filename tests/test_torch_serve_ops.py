@@ -86,11 +86,11 @@ def boot(stack, tmp_path, **overrides):
 # the slice against sat_tpu's server
 # ---------------------------------------------------------------------------
 
-# /stats and /healthz fields of sat_tpu's server with no counterpart yet:
-# the XLA compile ledger (nothing is compiled ahead here) and the
-# lifecycle plane (a later item of the serve plane)
-JAX_ONLY_STATS = {"warm_compiles", "compiles_since_ready", "lifecycle"}
-JAX_ONLY_HEALTHZ = {"lifecycle_state", "lifecycle"}
+# /stats fields of sat_tpu's server with no counterpart: the XLA compile
+# ledger (nothing is compiled ahead here).  /healthz has them all since the
+# lifecycle plane was ported.
+JAX_ONLY_STATS = {"warm_compiles", "compiles_since_ready"}
+JAX_ONLY_HEALTHZ = set()
 # the port's own /stats fields: the kernel launch counts and the device
 PORT_ONLY_STATS = {"kernels", "device"}
 
@@ -235,11 +235,11 @@ def test_real_stall_is_bounded_while_healthz_answers(stack, tmp_path):
     encode_batch = engine.encode_batch
     armed = [True]
 
-    def stalled(images, costs=None):
+    def stalled(images, *args, **kwargs):
         if armed[0]:
             armed[0] = False
             time.sleep(3.0)
-        return encode_batch(images, costs)
+        return encode_batch(images, *args, **kwargs)
 
     engine.encode_batch = stalled
     try:
@@ -537,10 +537,31 @@ def test_cli_takes_the_ops_flags_as_jax_does():
     "knob", [{"serve_wedge_timeout_ms": 250.0}, {"blackbox": True}, {"trace_export": "t.json"}],
     ids=lambda k: next(iter(k)),
 )
-def test_ops_knobs_pass_the_serve_check(knob):
-    from sat_tpu_torch.serve.engine import check_ported
+def test_ops_knobs_pass_the_serve_check(stack, tmp_path, knob):
+    """Serve has no knob check left: a server on each knob boots, answers
+    a request and drains (``trace_export`` writes its trace then)."""
+    from sat_tpu_torch.serve import engine as engine_mod
 
-    check_ported(stack_free_config(**knob))
+    assert not hasattr(engine_mod, "check_ported")
+    if "trace_export" in knob:
+        knob = {"trace_export": str(tmp_path / knob["trace_export"])}
+    server = boot(stack, tmp_path, **knob)
+    try:
+        assert post(server.port, stack["jpegs"][0])[0] == 200
+    finally:
+        server.shutdown()
+    if "trace_export" in knob:
+        assert os.path.isfile(knob["trace_export"])
+
+
+def _acting_server(stack, tmp_path, knob):
+    """A server on a fresh engine built with ``knob`` (the cache, the
+    quality plane and the alphas are fixed at engine construction)."""
+    config = stack["tc"].replace(telemetry_dir=str(tmp_path / "telemetry"), **knob)
+    state, _ = load_serving_state(config, device="cpu")
+    engine = ServeEngine(config, state, Vocabulary(config.vocabulary_size, config.vocabulary_file), device="cpu")
+    engine.warmup()
+    return CaptionServer(config, engine, port=0, host="127.0.0.1").start()
 
 
 @pytest.mark.parametrize(
@@ -549,11 +570,36 @@ def test_ops_knobs_pass_the_serve_check(knob):
      {"model_reload": 1.0}],
     ids=lambda k: next(iter(k)),
 )
-def test_later_serve_items_stay_refused(knob):
-    from sat_tpu_torch.serve.engine import check_ported
-
-    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}=.*not ported"):
-        check_ported(stack_free_config(**knob))
+def test_later_serve_items_stay_refused(stack, tmp_path, knob):
+    """The five serve knobs the earlier slices refused are accepted now,
+    and each acts: its /stats block shows it, or its counter moves."""
+    name = next(iter(knob))
+    server = _acting_server(stack, tmp_path, knob)
+    try:
+        jpeg = stack["jpegs"][0]
+        statuses = [post(server.port, jpeg)[0] for _ in range(2)]
+        if name == "serve_tier":
+            status, hdrs, _ = http(server.port, "POST", "/encode", jpeg, {"Content-Type": "image/jpeg"})
+            assert status == 200 and hdrs["Content-Type"] == "application/x-sat-grid"
+        stats = get_json(server.port, "/stats")[1]
+        healthz = get_json(server.port, "/healthz")[1]
+        reloader = server.lifecycle.reloader
+        polling = reloader is not None and reloader._thread.is_alive()
+    finally:
+        server.shutdown()
+    assert statuses == [200, 200]
+    if name == "encode_cache":
+        assert (stats["encode_cache"]["misses"], stats["encode_cache"]["hits"]) == (1, 1)
+    elif name == "serve_quality":
+        assert stats["quality"]["requests"] == 2
+    elif name == "serve_tier":
+        assert healthz["tier"] == stats["tier"] == "encode" and stats["counters"]["serve/encode_http"] == 1
+    elif name == "tenants":
+        assert stats["tenants"]["a"]["requests"] == 2 and healthz["tenants"] == ["a"]
+    else:
+        # the LAST_GOOD poller runs (its step is the one serving: no cycle)
+        assert stats["lifecycle"]["reload_poll_s"] == 1.0 and polling and server.lifecycle.reloader is None
+        assert healthz["lifecycle_state"] == "IDLE"
 
 
 def stack_free_config(**kw):

@@ -341,7 +341,8 @@ def test_pool_admits_what_fits_and_harvest_frees(engine):
         done, steps = pool.multi_step(4)
         done = done.numpy()
         assert 1 <= int(steps) <= 4
-        payloads, words, lengths, scores, steps_run = pool.harvest(done)
+        payloads, words, lengths, scores, steps_run, alphas = pool.harvest(done)
+        assert alphas is None  # serve_quality off
         assert len(payloads) == len(words) == len(scores) == int(done.sum())
         assert (steps_run >= 1).all() and np.isfinite(scores).all()
         harvested += payloads
@@ -360,9 +361,9 @@ def test_pool_encodes_at_the_smallest_lane_that_fits(engine, monkeypatch):
     widths = []
     encode = engine.encode_images
 
-    def spy(images):
+    def spy(images, *slot):
         widths.append(len(images))
-        return encode(images)
+        return encode(images, *slot)
 
     monkeypatch.setattr(engine, "encode_images", spy)
     images = _images(engine, 8, seed=1)

@@ -125,6 +125,22 @@ Phases, each fatal on failure:
    p50 off and on in turns; ``--phase bulk`` with quality on over the
    steady fixture's first 64 files killed at half its decode steps and
    relaunched: bitwise.  B1 and B2 counted on every part.
+14b. route — ``python -m sat_tpu_torch.cli --phase route --num_replicas
+   2`` over the flagship checkpoint, once in batch mode (B1 in the
+   replicas) and once in continuous mode (B2), replicas on free ports:
+   the fleet's boot seconds; every replica's ``/stats`` device
+   "cuda:0"; 12 images sent alone (each with its own ``X-Request-Id``)
+   with the words one in-process port server gives them alone, then 31
+   behind a lead (counted against that server's burst, not required:
+   the bf16 encode depends on the batch geometry); p50s beside the
+   single server's; each id once in the router's ``access.jsonl`` and
+   in exactly one replica's; r1 SIGKILLed in a burst of 32 once it
+   holds requests (32 answered 200, at least one retried, the fleet
+   view showing r1 unreachable), then respawned by the command the
+   fleet spawns it with (``LocalFleet.replica_argv``); ``POST /drain?replica=r0`` (r0 exits, 6 requests all answered
+   by r1) and ``/undrain``; SIGTERM: the router exits 0 and no replica
+   it started is left.  The replicas' kernel counts come from their
+   ``/stats``, read at readiness and at each one's end.
 15. train reference — the train path at the small float32 size, dropout
    off: 3 Adam steps on the card and on the CPU from the same weights
    and batch (losses within 1e-5 relative, parameters within 1e-5
@@ -145,7 +161,14 @@ Phases, each fatal on failure:
    training pairs/s, peak memory, FLOPs a step from the shapes against
    989 TFLOP/s bf16; 5 steps under torch.profiler (busy share, top
    kernels); the host time of forward, backward and update apart; one
-   eval-loss step at full width launching the kernel T times.
+   eval-loss step at full width launching the kernel T times.  Before
+   it, ``torch.cuda.memory_allocated()`` is printed.
+16a. supervise — the flagship trained 6 steps through the CLI on a
+   40-JPEG fixture (a control), then the same under ``--supervise``
+   with ``SAT_FI_WEDGE_AT_STEP=5`` and ``--watchdog 0.2`` (a 5 s step
+   deadline): the child aborted with exit 86 and a stack dump, one
+   restart from LAST_GOOD 3, LAST_GOOD 6; the max abs difference
+   between the two 6.npz printed.
 
 18. resnet50 reference — the small float32 ResNet50 (64 px: N=4,
    D=2048) on the card and on the CPU: contexts within 1e-4 of max|ctx|,
@@ -180,15 +203,23 @@ Phases, each fatal on failure:
    within the JAX package's gate (bf16 0.05, int8 0.10 of max|ctx|),
    caption agreement with ``off`` over 36 images, encode time beside
    ``off``; one int8 conv's int32 accumulators on the card bitwise the
-   CPU's.
+   CPU's; the checkpoint's int8 ``qcnn`` bitwise the incumbent's when
+   its whole tree is moved to the card first, when its host tree is
+   folded on the card one conv at a time, and through the lifecycle
+   loader, with the seconds and the rise of peak device memory of the
+   first two.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card or without the package beside it.
 
-``python3 chip_smoke.py --planes`` runs only the build and phases 14a
-and 19a (on their own checkpoints and a 64-file fixture).
+``python3 chip_smoke.py --only route_batch,supervise`` runs the build
+and the named phases (spaces in a name become ``_``; an unknown name
+fails with the list), with the phases they need before them; it prints
+each phase's launches and no kernels or ok line.
+
+Fails when ``SAT_TORCH_DEVICE`` is set: every phase takes the card.
 
 ``python3 chip_smoke.py --bench`` runs only the build and a kernel
 bench: the kernel at every timed shape beside what bounds it there, the
@@ -202,6 +233,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -3096,12 +3128,17 @@ def encoder_quant_phase(torch, np, tmp: str, card: str):
     (seconds printed), contexts of a bucket-32 batch within the JAX
     package's gate of the unquantized ones, the caption agreement with
     the unquantized path over 36 images, the encode time of a bucket-32
-    batch beside ``off``; and one int8 conv's int32 accumulators on the
-    card bitwise the CPU's."""
+    batch beside ``off``; one int8 conv's int32 accumulators on the card
+    bitwise the CPU's; and a candidate's int8 ``qcnn`` from its host tree
+    bitwise that of the tree moved whole to the card, with the seconds
+    and the peak device memory of both."""
     from sat_tpu_torch.data.vocabulary import Vocabulary
+    from sat_tpu_torch.lifecycle.loader import load_candidate
     from sat_tpu_torch.models.captioner import _preprocess
     from sat_tpu_torch.nn import quant
+    from sat_tpu_torch.resilience import lineage
     from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
+    from sat_tpu_torch.train import checkpoint
 
     bodies = jpegs(np, 36, 256, SEED + 3)
     for config in (flagship_config(tmp), resnet50_config(tmp)):
@@ -3150,17 +3187,553 @@ def encoder_quant_phase(torch, np, tmp: str, card: str):
                  f"{int((on_card - on_cpu).abs().max())}")
         print(f"encoder_quant {cnn} int8 {first} on 8 images: int32 accumulators {tuple(on_card.shape)} "
               f"bitwise the CPU's (max |acc| {int(on_card.abs().max())})", flush=True)
+        # C13: the whole tree moved to the card and quantized there (how
+        # slot_params took a host tree before C13), beside the same tree
+        # left on the host and folded on the card one conv at a time, and
+        # the lifecycle loader's candidate: every qcnn bitwise the
+        # incumbent's, which was quantized from a tree already on the card
+        engine = out["int8"]["engine"]
+        path = lineage.last_good_checkpoint(config.save_dir)
+        flat = checkpoint.load_flat(path)
+        params = checkpoint.params_from_flat(flat, config, "cpu")
+        stats = checkpoint.batch_stats_from_flat(flat, config, "cpu")
+
+        def measured(fn):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            return result, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - before) / 2**20
+
+        with engine.on_device():
+            whole, whole_s, whole_mib = measured(
+                lambda: engine.slot_params(checkpoint.to_device(params, engine.device),
+                                           checkpoint.to_device(stats, engine.device)))
+            del whole["decoder"]
+            host, host_s, host_mib = measured(lambda: engine.slot_params(params, stats))
+        staged = load_candidate(engine, engine.config, path)
+        for what, tree in (("whole tree quantized on the card", whole["qcnn"]),
+                           ("host tree folded on the card", host["qcnn"]),
+                           ("loader's candidate", staged["variables"]["qcnn"])):
+            for name, spec in qcnn.items():
+                for key, value in spec.items():
+                    other = tree[name][key]
+                    same = torch.equal(value, other) if isinstance(value, torch.Tensor) else value == other
+                    if not same:
+                        fail(f"encoder_quant {cnn}: the {what}: qcnn {name}/{key} differs from the incumbent's")
+        print(f"encoder_quant {cnn} int8 on {card}, C13: a checkpoint's qcnn bitwise the incumbent's "
+              f"({len(qcnn)} convs) when the whole tree is moved to the card first, when the host tree is "
+              f"folded on the card one conv at a time, and through the loader ({staged['load_seconds']:.2f}s "
+              f"with the file read); slot_params {whole_s:.2f}s and peak device memory +{whole_mib:.1f} MiB "
+              f"with the whole tree moved, {host_s:.2f}s and +{host_mib:.1f} MiB from the host tree",
+              flush=True)
+        del staged, whole, host
         del out
+
+
+# -- route and supervise (the fleet router and the crash-only supervisor) ----
+
+ROUTE_ALONE = 12   # images sent one at a time, through the router and to one server
+
+
+def free_base_port(n: int) -> int:
+    """A port with the ``n - 1`` ports after it free too (best-effort: the
+    ports are released before the fleet binds them)."""
+    import socket
+
+    for _ in range(64):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        socks = []
+        try:
+            for port in range(base, base + n):
+                socks.append(socket.socket())
+                socks[-1].bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("no run of free ports on 127.0.0.1")
+
+
+def child_pids(parent: int) -> dict:
+    """{replica name: pid} of the ``--phase serve`` children a router
+    process started (their command names ``replica_<i>``)."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != parent:
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().decode(errors="replace")
+        except (OSError, ValueError, IndexError):
+            continue
+        for i in range(8):
+            if f"replica_{i}" in cmd:
+                out[f"r{i}"] = int(entry)
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def stop_groups(procs) -> None:
+    """SIGKILL each process's group (the process and whatever it spawned
+    and did not stop); a group already empty is skipped."""
+    for p in procs:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait(10)
+
+
+def wait_for(predicate, limit_s: float, what: str, poll_s: float = 0.1):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        value = predicate()
+        if value:
+            return time.perf_counter() - t0
+        time.sleep(poll_s)
+    fail(f"{what} (waited {limit_s:.0f}s)")
+
+
+def replica_counts(port: int, where: str):
+    """(B1 launches, B2 launches) a replica reports on /stats; fails unless
+    it serves from ``cuda:0``."""
+    stats = get_stats(port)
+    if stats.get("device") != "cuda:0":
+        fail(f"{where}: replica on port {port} reports device {stats.get('device')!r}, not 'cuda:0'")
+    k = stats["kernels"]["fused_attend"]
+    return k["launches"], k["masked_launches"]
+
+
+def routable(port: int, n: int):
+    try:
+        status, payload = healthz(port)
+    except (OSError, ValueError):
+        return False
+    return status == 200 and payload.get("replicas_routable") == n
+
+
+def access_records(path: str):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def p50(replies) -> float:
+    return statistics.median(r[-1] for r in replies)
+
+
+def one_server_replies(np, config, mode: str, bodies):
+    """One port server on the flagship checkpoint in ``mode``: the
+    ``ROUTE_ALONE`` images sent one at a time, then 31 behind a lead."""
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.data.vocabulary import Vocabulary
+    from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
+    from sat_tpu_torch.serve.server import CaptionServer
+
+    cfg = config.replace(serve_mode=mode)
+    telemetry.enable()
+    state, _ = load_serving_state(cfg, device="cuda")
+    engine = ServeEngine(cfg, state, Vocabulary(cfg.vocabulary_size, cfg.vocabulary_file), device="cuda")
+    if mode == "batch":
+        engine.warmup()
+    server = CaptionServer(cfg, engine, port=0, host="127.0.0.1")
+    try:
+        server.start()
+        alone = [post(server.port, bodies[i]) for i in range(ROUTE_ALONE)]
+        lead, burst = post_all(server.port, bodies[4:35], lead=bodies[35])
+    finally:
+        server.shutdown()
+        telemetry.disable()
+    for status, payload, _ in alone + burst + [lead]:
+        if status != 200:
+            fail(f"route {mode}: the single server answered {status}: {payload}")
+    return alone, burst
+
+
+def route_phase(torch, np, config, card: str, mode: str, tmp: str):
+    """``python -m sat_tpu_torch.cli --phase route --num_replicas 2`` over
+    the flagship checkpoint in ``mode`` (batch: B1 in the replicas;
+    continuous: B2).  Returns (B1, B2) launches the replicas counted
+    between their readiness and their end."""
+    from sat_tpu_torch.serve.replica import LocalFleet
+
+    where = f"route {mode}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, f"route_{mode}")
+    os.makedirs(root)
+    bodies = jpegs(np, 36, 256, SEED + 3)
+    single_alone, single_burst = one_server_replies(np, config, mode, bodies)
+    torch.cuda.empty_cache()
+
+    base, rport = free_base_port(2), free_base_port(1)
+    cfg = config.replace(phase="route", serve_mode=mode, summary_dir=os.path.join(root, "summary"),
+                         route_replica_base_port=base, route_poll_interval_s=0.2)
+    cfg_path = os.path.join(root, "route.json")
+    cfg.save(cfg_path)
+    fleet_dir = os.path.join(cfg.summary_dir, "fleet")
+    logs = [open(os.path.join(root, n), "w+") for n in ("router.out", "router.err")]
+    t0 = time.perf_counter()
+    # its own process group, which the replicas it spawns join: a failure
+    # below stops them all at once
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sat_tpu_torch.cli", "--config", cfg_path, "--num_replicas", "2",
+         "--port", str(rport)], cwd=here, stdout=logs[0], stderr=logs[1], start_new_session=True,
+    )
+    own = {}  # replicas this script starts itself (the respawn)
+
+    def tail():
+        logs[1].flush()
+        logs[1].seek(0)
+        return logs[1].read()[-3000:]
+
+    try:
+        while not routable(rport, 2):
+            if proc.poll() is not None:
+                fail(f"{where}: the router exited {proc.returncode} during boot:\n{tail()}")
+            if time.perf_counter() - t0 > 300:
+                fail(f"{where}: the fleet was not ready within 300s:\n{tail()}")
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t0
+        pids = child_pids(proc.pid)
+        if sorted(pids) != ["r0", "r1"]:
+            fail(f"{where}: the router's children are {pids}, expected r0 and r1")
+        ports = {"r0": base, "r1": base + 1}
+        counts = {}  # incarnation -> [B1, B2] at readiness, then at its end
+        for name, port in ports.items():
+            counts[name] = [replica_counts(port, where), None]
+
+        # traffic: ROUTE_ALONE alone, each with its own request id, then 31 behind a lead
+        alone, rids = [], []
+        for i in range(ROUTE_ALONE):
+            rid = f"route-{mode}-{i}"
+            status, payload, echoed, ms = caption(rport, bodies[i], rid)
+            if status != 200 or echoed != rid or payload.get("request_id") != rid:
+                fail(f"{where}: request {rid} got {status}, echoed {echoed!r}: {payload}")
+            alone.append((status, payload, ms))
+            rids.append(rid)
+        lead, burst = post_all(rport, bodies[4:35], lead=bodies[35])
+        check_replies(np, config, {"alone": alone, "burst": burst, "lead": [lead]}, where)
+        lp = same_words([(a[1], s[1]) for a, s in zip(alone, single_alone)],
+                        f"{where}: routed alone vs one server alone")
+        agree = sum(identical_captions([(b[1], s[1])])[0] for b, s in zip(burst, single_burst))
+        print(f"{where} on {card}: fleet of 2 ready in {boot_s:.2f}s (router start to both replicas "
+              f"routable); {ROUTE_ALONE} images alone: the words of one port server alone, log-prob max abs "
+              f"diff {lp:.2e}; 31 behind a lead: {agree}/31 with the one server's words in its own burst "
+              f"(bf16 encode depends on the batch geometry, so counted, not required)", flush=True)
+        print(f"{where} p50 request latency on {card} (client clock): through the router alone "
+              f"{p50(alone):.2f} ms, 31 behind a lead {p50(burst):.2f} ms; one server alone "
+              f"{p50(single_alone):.2f} ms, 31 behind a lead {p50(single_burst):.2f} ms", flush=True)
+
+        # each id in the router's access log once, and in exactly one replica's
+        router_log = os.path.join(cfg.summary_dir, "telemetry", "access.jsonl")
+        replica_logs = {n: os.path.join(fleet_dir, f"replica_{n[1]}", "telemetry", "access.jsonl") for n in ports}
+
+        def stitched():
+            hops = [r for r in access_records(router_log) if r.get("trace_id") in rids]
+            served = {n: {r.get("trace_id") for r in access_records(p)} for n, p in replica_logs.items()}
+            if len(hops) != len(rids):
+                return False
+            for hop in hops:
+                if hop.get("hop") != "route" or hop.get("status") != 200:
+                    return False
+                if [n for n, ids in served.items() if hop["trace_id"] in ids] != [hop.get("replica")]:
+                    return False
+            return True
+
+        wait_for(stitched, 10, f"{where}: request ids do not stitch across the router and one replica")
+
+        # SIGKILL r1 mid-burst: every request still answered, through the one retry
+        counts["r1"][1] = replica_counts(ports["r1"], where)
+        retries0 = get_stats(rport)["counters"].get("route/retries", 0)
+        result = {}
+        sender = threading.Thread(target=lambda: result.update(
+            zip(("lead", "burst"), post_all(rport, bodies[4:35], lead=bodies[35]))))
+        sender.start()
+        # killed while it holds requests, so the router has some to retry
+        wait_for(lambda: healthz(ports["r1"])[1]["in_flight"] > 0, 30,
+                 f"{where}: r1 never held a request of the burst", poll_s=0.005)
+        os.kill(pids["r1"], signal.SIGKILL)
+        sender.join(timeout=600)
+        codes = [r[0] for r in result.get("burst", [])] + [result["lead"][0]] if "lead" in result else []
+        if len(codes) != 32 or any(c != 200 for c in codes):
+            fail(f"{where}: a request failed while r1 was killed: {codes}")
+        retries = get_stats(rport)["counters"].get("route/retries", 0) - retries0
+        if retries < 1:
+            fail(f"{where}: r1 was killed holding requests, yet the router retried none")
+        wait_for(lambda: get_stats(rport)["replicas"]["r1"]["reachable"] is False, 10,
+                 f"{where}: the fleet view does not show the killed r1 unreachable")
+        # respawn it as the fleet respawns it: its command on its port
+        t1 = time.perf_counter()
+        log = open(os.path.join(root, "respawn_r1.log"), "w")
+        own["r1"] = subprocess.Popen(
+            LocalFleet.replica_argv(fleet_dir, 1),
+            cwd=here, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+        )
+        log.close()
+        wait_for(lambda: routable(rport, 2), 300, f"{where}: the respawned r1 did not come back routable")
+        respawn_s = time.perf_counter() - t1
+        counts["r1'"] = [replica_counts(ports["r1"], where), None]
+        print(f"{where}: r1 SIGKILLed in a burst of 32 while holding requests: 32/32 answered 200, "
+              f"route/retries +{retries}; the fleet view showed r1 unreachable; respawned r1 routable again in "
+              f"{respawn_s:.2f}s", flush=True)
+
+        # drain r0: the router SIGTERMs it and sends everything to r1; then undrain
+        counts["r0"][1] = replica_counts(ports["r0"], where)
+        status, _, raw = http(rport, "POST", "/drain?replica=r0")
+        if status != 200 or json.loads(raw).get("mechanism") != "sigterm":
+            fail(f"{where}: POST /drain?replica=r0 gave {status} {raw!r}")
+        wait_for(lambda: not pid_alive(pids["r0"]), 60, f"{where}: the drained r0 did not exit")
+        wait_for(lambda: get_stats(rport)["replicas"]["r0"]["drain_state"] == "drained", 10,
+                 f"{where}: r0 never reached 'drained'")
+        routed = []
+        for i in range(6):
+            status, hdrs, raw = http(rport, "POST", "/caption", bodies[i], {"Content-Type": "image/jpeg"})
+            routed.append((status, hdrs.get("X-Routed-Replica")))
+        if any(r != (200, "r1") for r in routed):
+            fail(f"{where}: with r0 drained, replies came from {routed}")
+        status, _, raw = http(rport, "POST", "/undrain?replica=r0")
+        if status != 200 or get_stats(rport)["replicas"]["r0"]["drain_state"] != "in":
+            fail(f"{where}: POST /undrain?replica=r0 gave {status} {raw!r}")
+        counts["r1'"][1] = replica_counts(ports["r1"], where)
+        print(f"{where}: POST /drain?replica=r0 -> r0 exited (SIGTERM drain), 6/6 requests answered by "
+              f"r1; POST /undrain -> r0 back 'in' rotation", flush=True)
+
+        # SIGTERM the router: exit 0, and no replica it started is left
+        stats = get_stats(rport)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail(f"{where}: the router did not exit within 60s of SIGTERM:\n{tail()}")
+        if rc != 0 or "router drained cleanly" not in tail():
+            fail(f"{where}: the router exited {rc} on SIGTERM:\n{tail()}")
+        if any(pid_alive(pid) for pid in pids.values()):
+            fail(f"{where}: a replica the router started outlived it: {pids}")
+        own["r1"].send_signal(signal.SIGTERM)
+        if own["r1"].wait(timeout=60) != 0:
+            fail(f"{where}: the respawned r1 exited {own['r1'].returncode} on SIGTERM")
+    finally:
+        stop_groups([proc, *own.values()])
+        for f in logs:
+            f.close()
+    lat = stats["latency_ms"]
+    print(f"{where}: SIGTERM -> router exit 0, every replica it started gone; router spans "
+          + ", ".join(f"{k} p50 {v['p50']:.2f} ms" for k, v in sorted(lat.items()) if "p50" in v), flush=True)
+    b1 = b2 = 0
+    for name, (start, end) in counts.items():
+        d1, d2 = end[0] - start[0], end[1] - start[1]
+        b1, b2 = b1 + d1, b2 + d2
+        print(f"{where} replica {name}: fused_attend launches {d1}, masked {d2} (its /stats, from "
+              f"readiness to its end; r1's launches after its kill are lost)", flush=True)
+    if (mode == "batch" and b1 == 0) or (mode == "continuous" and b2 == 0):
+        fail(f"{where}: the replicas launched B1 {b1} and B2 {b2} times")
+    return b1, b2
+
+
+def supervise_phase(np, tmp: str, card: str):
+    """The flagship trained 6 steps through the CLI (a control), then the
+    same run under ``--supervise`` with ``SAT_FI_WEDGE_AT_STEP=5`` and the
+    watchdog armed by ``--watchdog``: the child is aborted with exit 86
+    and a stack dump, the supervisor restarts it once from LAST_GOOD (3)
+    and it ends at 6.  Prints the max abs difference of the two 6.npz."""
+    from sat_tpu_torch.resilience import lineage
+    from sat_tpu_torch.train.checkpoint import load_flat
+
+    where = "supervise"
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "supervise")
+    image_dir, caption_file = write_coco_fixture(np, os.path.join(root, "data"), 40, SEED + 9)
+    base = flagship_config(tmp).replace(
+        phase="train", train_image_dir=image_dir, train_caption_file=caption_file,
+        vocabulary_file=os.path.join(root, "vocabulary.csv"), max_steps=6, save_period=3, log_every=1,
+        watchdog_step_s=5.0, watchdog_data_wait_s=120.0, watchdog_dispatch_s=120.0,
+        watchdog_checkpoint_s=120.0, watchdog_grace_s=0.3, supervise_backoff_s=0.1,
+    )
+    write_vocabulary(np, base.vocabulary_file, base.vocabulary_size, caption_words())
+    runs = {}
+    for name in ("control", "supervised"):
+        d = os.path.join(root, name)
+        cfg = base.replace(save_dir=os.path.join(d, "models"), summary_dir=os.path.join(d, "summary"),
+                           temp_annotation_file=os.path.join(d, "anns.csv"),
+                           temp_data_file=os.path.join(d, "data.npy"))
+        os.makedirs(d)
+        path = os.path.join(d, "train.json")
+        cfg.save(path)
+        args = ["--config", path, "--watchdog", "0.2"] + (["--supervise"] if name == "supervised" else [])
+        env = {**os.environ, "SAT_FI_WEDGE_AT_STEP": "5"} if name == "supervised" else None
+        t0 = time.perf_counter()
+        # a group of its own: the supervisor's child goes down with it
+        proc = subprocess.Popen([sys.executable, "-m", "sat_tpu_torch.cli", *args], cwd=here, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            stop_groups([proc])
+            fail(f"{where} {name}: did not finish within 600s")
+        finally:
+            stop_groups([proc])
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{where} {name}: exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        if lineage.last_good_step(cfg.save_dir) != 6:
+            fail(f"{where} {name}: LAST_GOOD {lineage.last_good_step(cfg.save_dir)}, expected 6")
+        runs[name] = (cfg, wall, stderr)
+    cfg, wall, err = runs["supervised"]
+    for line in ("sat_tpu_torch watchdog: phase 'step' exceeded", "aborting with exit code 86",
+                 "watchdog abort (wedged run; LAST_GOOD landed)", "run completed after 1 restart(s)"):
+        if line not in err:
+            fail(f"{where}: {line!r} is not in the supervisor's stderr:\n{err[-3000:]}")
+    dump = os.path.join(cfg.summary_dir, "telemetry", "watchdog_stacks.txt")
+    if not os.path.isfile(dump):
+        fail(f"{where}: no stack dump at {dump}")
+    got = load_flat(os.path.join(cfg.save_dir, "6.npz"))
+    want = load_flat(os.path.join(runs["control"][0].save_dir, "6.npz"))
+    if sorted(got) != sorted(want):
+        fail(f"{where}: the two 6.npz hold different names")
+    diffs = {k: float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64))))
+             for k in want if np.asarray(want[k]).size}
+    worst = max(diffs, key=diffs.get)
+    differing = sum(1 for v in diffs.values() if v != 0)
+    print(f"{where} on {card}: control 6 flagship steps through the CLI in {runs['control'][1]:.2f}s; "
+          f"--supervise with SAT_FI_WEDGE_AT_STEP=5: child aborted with exit 86 (stack dump written), "
+          f"restarted once from LAST_GOOD 3, ended at 6, in {wall:.2f}s; final 6.npz vs the control's: "
+          f"max abs difference {diffs[worst]:.3e} ({worst}), {differing}/{len(diffs)} arrays differ", flush=True)
+    return diffs[worst]
+
+
+def served(np, config) -> None:
+    """The vocabulary and the step-1000 checkpoint that ``slice_phase``
+    writes for ``config``, for a phase run without it (``--only``)."""
+    if not os.path.exists(os.path.join(config.save_dir, "1000.npz")):
+        os.makedirs(os.path.dirname(config.vocabulary_file), exist_ok=True)
+        write_vocabulary(np, config.vocabulary_file, config.vocabulary_size)
+        write_checkpoint(np, config, config.save_dir, step=1000, seed=SEED)
+
+
+def phases(torch, np, fa, card: str):
+    """The full run's phases in order: (name, the phases it needs before
+    it, its function of the run's scratch directory).  What a phase
+    returns is kept under its name; later phases read the launches and
+    the serve engine from there."""
+    got = {}
+
+    def slice_(tmp):
+        engine, launches, bodies, first = slice_phase(np, fa, flagship_config(tmp), card)
+        got["engine"], got["bodies"], got["batch_first"] = engine, bodies, first
+        return launches
+
+    def continuous(tmp):
+        return continuous_phase(torch, np, fa, flagship_config(tmp).replace(serve_mode="continuous"), card,
+                                got["bodies"], got["batch_first"])
+
+    def serve_ops(tmp):
+        return serve_ops_phase(torch, np, got.pop("engine"), flagship_config(tmp), card, got["bodies"])
+
+    def train_steady(tmp):
+        print(f"device memory allocated before train steady: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+              f"(torch.cuda.memory_allocated, {card})", flush=True)
+        return train_steady_phase(torch, np, fa, train_config(os.path.join(tmp, "steady"), tmp), card)
+
+    def r50_serve_and_bulk(tmp):
+        r50 = resnet50_config(tmp)
+        engine, launches, bodies, first = slice_phase(np, fa, r50, card, where="resnet50 slice")
+        profile_phase(torch, engine, bodies, where="resnet50 profile")
+        del engine
+        masked = continuous_phase(torch, np, fa, r50.replace(serve_mode="continuous"), card, bodies, first,
+                                  where="resnet50 continuous", log_prob_rtol=1e-3)
+        return launches, masked, resnet50_bulk(np, tmp, r50, card)
+
+    def r50_planes(tmp):
+        r50 = resnet50_config(tmp)
+        served(np, r50)
+        return cache_part(torch, np, fa, r50, card, jpegs(np, 36, 256, SEED + 3), "resnet50 cache",
+                          modes=("continuous",))[1]
+
+    def r50_eval_and_train(tmp):
+        launches = resnet50_eval_phase(np, tmp, card)
+        got["r50_train"] = resnet50_train_phase(torch, np, tmp, card)
+        return launches
+
+    def encoder_quant(tmp):
+        for config in (flagship_config(tmp), resnet50_config(tmp)):
+            served(np, config)
+        encoder_quant_phase(torch, np, tmp, card)
+
+    def route(mode):
+        def run(tmp):
+            config = flagship_config(tmp)
+            served(np, config)
+            return route_phase(torch, np, config, card, mode, tmp)
+        return run
+
+    def planes(tmp):
+        config = flagship_config(tmp)
+        served(np, config)
+        return serve_planes_phase(torch, np, fa, config, card, tmp)
+
+    return [
+        ("kernel", (), lambda tmp: kernel_phase(torch, fa)),
+        ("masked", (), lambda tmp: masked_phase(torch, fa)),
+        ("reference", (), lambda tmp: reference_phase(torch, np, tmp)),
+        ("slice", (), slice_),
+        ("profile", ("slice",), lambda tmp: profile_phase(torch, got["engine"], got["bodies"])),
+        ("continuous", ("slice",), continuous),
+        ("serve ops", ("slice",), serve_ops),
+        ("eval", (), lambda tmp: eval_phase(np, eval_config(tmp), card)),
+        ("test", ("eval",), lambda tmp: test_phase(np, eval_config(tmp), card)),
+        ("eval reference", ("eval",), lambda tmp: eval_reference_phase(np, eval_config(tmp))),
+        ("eval steady", ("eval",), lambda tmp: eval_steady_phase(torch, np, eval_config(tmp), card)),
+        ("shard cache", ("eval steady",), lambda tmp: shard_cache_phase(torch, np, eval_config(tmp), card)),
+        ("bulk", ("slice", "eval steady"), lambda tmp: bulk_phase(torch, np, tmp, card)),
+        ("serve planes", (), planes),
+        ("route batch", (), route("batch")),
+        ("route continuous", (), route("continuous")),
+        ("train reference", (), lambda tmp: train_reference_phase(torch, np, fa)),
+        ("train", ("eval steady",),
+         lambda tmp: train_phase(np, train_config(os.path.join(tmp, "steady"), tmp), card)),
+        ("supervise", (), lambda tmp: supervise_phase(np, tmp, card)),
+        ("train steady", ("train",), train_steady),
+        ("resnet50 reference", (), lambda tmp: resnet50_reference_phase(torch, np, fa, tmp)),
+        ("resnet50 serve and bulk", ("bulk",), r50_serve_and_bulk),
+        ("resnet50 serve planes", (), r50_planes),
+        ("resnet50 eval and train", ("eval", "train"), r50_eval_and_train),
+        ("import", ("resnet50 eval and train",), lambda tmp: import_phase(np, got["r50_train"], card)),
+        ("encoder_quant", (), encoder_quant),
+    ]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", action="store_true", help="build and kernel bench only")
-    ap.add_argument("--planes", action="store_true", help="build and the serve planes phases only")
+    ap.add_argument("--only", default="", help="comma-separated phases to run (with what they need)")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sat_tpu_torch")):
         fail("the sat_tpu_torch package is not beside this script")
+    if "SAT_TORCH_DEVICE" in os.environ:
+        fail(f"SAT_TORCH_DEVICE={os.environ['SAT_TORCH_DEVICE']!r} is set: every phase here must take the card")
     sys.path.insert(0, here)
     import numpy as np
     import torch
@@ -3191,108 +3764,41 @@ def main() -> int:
     if args.bench:
         bench_phase(torch, fa)
         return 0
-    if args.planes:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            config = flagship_config(tmp)
-            r50 = resnet50_config(tmp)
-            os.makedirs(os.path.dirname(r50.vocabulary_file))
-            for c in (config, r50):
-                write_vocabulary(np, c.vocabulary_file, c.vocabulary_size)
-                write_checkpoint(np, c, c.save_dir, step=1000, seed=SEED)
-            t0 = time.perf_counter()
-            print(f"serve planes launches {serve_planes_phase(torch, np, fa, config, card, tmp)}", flush=True)
-            phase("serve planes", t0)
-            t0 = time.perf_counter()
-            cache_part(torch, np, fa, r50, card, jpegs(np, 36, 256, SEED + 3), "resnet50 cache",
-                       modes=("continuous",))
-            phase("resnet50 serve planes", t0)
-        return 0
-
-    t0 = time.perf_counter()
-    rows = kernel_phase(torch, fa)
-    phase("kernel", t0)
-
-    t0 = time.perf_counter()
-    masked_rows, masked_err = masked_phase(torch, fa)
-    phase("masked", t0)
-
+    plan = phases(torch, np, fa, card)
+    names = [name.replace(" ", "_") for name, _, _ in plan]
+    chosen = set(names)
+    if args.only:
+        want = [n.strip() for n in args.only.split(",") if n.strip()]
+        unknown = sorted(set(want) - chosen)
+        if unknown:
+            fail(f"--only: no phase {unknown}; the phases are {', '.join(names)}")
+        chosen = set(want)
+        for name, needs, _ in reversed(plan):
+            if name.replace(" ", "_") in chosen:
+                chosen.update(n.replace(" ", "_") for n in needs)
+    got = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        reference_phase(torch, np, tmp)
-        phase("reference", t0)
-        t0 = time.perf_counter()
-        config = flagship_config(tmp)
-        engine, launches, bodies, batch_first = slice_phase(np, fa, config, card)
-        phase("slice", t0)
-        t0 = time.perf_counter()
-        profile_phase(torch, engine, bodies)
-        phase("profile", t0)
-        t0 = time.perf_counter()
-        masked_launches = continuous_phase(
-            torch, np, fa, config.replace(serve_mode="continuous"), card, bodies, batch_first
-        )
-        phase("continuous", t0)
-        t0 = time.perf_counter()
-        ops_launches, ops_masked = serve_ops_phase(torch, np, engine, config, card, bodies)
-        del engine
-        phase("serve ops", t0)
-        t0 = time.perf_counter()
-        config = eval_config(tmp)
-        eval_launches = eval_phase(np, config, card)
-        phase("eval", t0)
-        t0 = time.perf_counter()
-        test_launches = test_phase(np, config, card)
-        phase("test", t0)
-        t0 = time.perf_counter()
-        eval_reference_phase(np, config)
-        phase("eval reference", t0)
-        t0 = time.perf_counter()
-        eval_steady_phase(torch, np, config, card)
-        phase("eval steady", t0)
-        t0 = time.perf_counter()
-        shard_cache_phase(torch, np, config, card)
-        phase("shard cache", t0)
-        t0 = time.perf_counter()
-        bulk_launches = bulk_phase(torch, np, tmp, card)
-        phase("bulk", t0)
-        t0 = time.perf_counter()
-        planes_b1, planes_b2 = serve_planes_phase(torch, np, fa, flagship_config(tmp), card, tmp)
-        phase("serve planes", t0)
-        t0 = time.perf_counter()
-        train_reference_phase(torch, np, fa)
-        phase("train reference", t0)
-        t0 = time.perf_counter()
-        config = train_config(os.path.join(tmp, "steady"), tmp)
-        train_test_launches = train_phase(np, config, card)
-        phase("train", t0)
-        t0 = time.perf_counter()
-        eval_loss_launches = train_steady_phase(torch, np, fa, config, card)
-        phase("train steady", t0)
-        t0 = time.perf_counter()
-        resnet50_reference_phase(torch, np, fa, tmp)
-        phase("resnet50 reference", t0)
-        t0 = time.perf_counter()
-        r50 = resnet50_config(tmp)
-        engine, r50_launches, bodies, r50_first = slice_phase(np, fa, r50, card, where="resnet50 slice")
-        profile_phase(torch, engine, bodies, where="resnet50 profile")
-        del engine
-        r50_masked = continuous_phase(torch, np, fa, r50.replace(serve_mode="continuous"), card, bodies,
-                                      r50_first, where="resnet50 continuous", log_prob_rtol=1e-3)
-        r50_bulk = resnet50_bulk(np, tmp, r50, card)
-        phase("resnet50 serve and bulk", t0)
-        t0 = time.perf_counter()
-        _, r50_planes, _ = cache_part(torch, np, fa, r50, card, bodies, "resnet50 cache", modes=("continuous",))
-        phase("resnet50 serve planes", t0)
-        t0 = time.perf_counter()
-        r50_eval = resnet50_eval_phase(np, tmp, card)
-        r50_train = resnet50_train_phase(torch, np, tmp, card)
-        phase("resnet50 eval and train", t0)
-        t0 = time.perf_counter()
-        import_launches = import_phase(np, r50_train, card)
-        phase("import", t0)
-        t0 = time.perf_counter()
-        encoder_quant_phase(torch, np, tmp, card)
-        phase("encoder_quant", t0)
+        for (name, _, run), key in zip(plan, names):
+            if key in chosen:
+                t0 = time.perf_counter()
+                got[name] = run(tmp)
+                phase(name, t0)
+                value = got[name]
+                if args.only and (isinstance(value, int) or isinstance(value, tuple) and all(
+                        isinstance(v, int) for v in value)):
+                    print(f"{name} launches {value}", flush=True)
+    if args.only:
+        return 0
+    rows, (masked_rows, masked_err) = got["kernel"], got["masked"]
+    launches, masked_launches, (ops_launches, ops_masked) = got["slice"], got["continuous"], got["serve ops"]
+    eval_launches, test_launches, bulk_launches = got["eval"], got["test"], got["bulk"]
+    planes_b1, planes_b2 = got["serve planes"]
+    route_b1 = got["route batch"][0] + got["route continuous"][0]
+    route_b2 = got["route batch"][1] + got["route continuous"][1]
+    train_test_launches, eval_loss_launches = got["train"], got["train steady"]
+    r50_launches, r50_masked, r50_bulk = got["resnet50 serve and bulk"]
+    r50_planes, r50_eval, import_launches = (got["resnet50 serve planes"], got["resnet50 eval and train"],
+                                             got["import"])
 
     for B, N, what in ((60, 196, "eval: batch 20 x beam 3"), (20, 196, "eval-loss step: batch 20"),
                        (96, 49, "ResNet50 bucket 32 x beam 3"), (60, 49, "ResNet50 eval: batch 20 x beam 3")):
@@ -3301,14 +3807,16 @@ def main() -> int:
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     vgg_b1 = (launches + ops_launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
-              + planes_b1)
+              + planes_b1 + route_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
           f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
-          f"step {eval_loss_launches}, serve planes {planes_b1}; ResNet50 batch serve {r50_launches}, eval "
+          f"step {eval_loss_launches}, serve planes {planes_b1}, route replicas {route_b1}; ResNet50 batch "
+          f"serve {r50_launches}, eval "
           f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
-          f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}; ResNet50 continuous "
+          f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}, route replicas "
+          f"{route_b2}; ResNet50 continuous "
           f"serve {r50_masked}, bulk {r50_bulk}, serve planes {r50_planes}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 196, "bfloat16"))
     r50_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 49, "bfloat16"))
@@ -3329,6 +3837,7 @@ def main() -> int:
         "library_ms": None,
         "shape": "B=96 N=196 da=D=512 bfloat16 (bucket 32 x beam 3)",
         "launches_resnet50": r50_b1,
+        "launches_route_replicas": route_b1,
         "resnet50": {"shape": "B=96 N=49 da=512 D=2048 bfloat16", "ms": r50_row["ms"],
                      "plain_ms": r50_row["plain_ms"], "bound_ms": r50_row["bound_ms"],
                      "bound_by": r50_row["bound_by"]},
@@ -3337,7 +3846,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
-        "launches": masked_launches + ops_masked + bulk_launches + planes_b2 + r50_masked + r50_bulk + r50_planes,
+        "launches": (masked_launches + ops_masked + bulk_launches + planes_b2 + route_b2 + r50_masked + r50_bulk
+                     + r50_planes),
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],
@@ -3347,6 +3857,7 @@ def main() -> int:
         "library_ms": None,
         "shape": "B=48 N=196 da=D=512 bfloat16, 48 rows live (16 slots x beam 3)",
         "launches_resnet50": r50_masked + r50_bulk + r50_planes,
+        "launches_route_replicas": route_b2,
         "resnet50": {"shape": "B=48 N=49 da=512 D=2048 bfloat16, 48 rows live", "ms": r50_masked_row["ms"],
                      "plain_ms": r50_masked_row["plain_ms"], "bound_ms": r50_masked_row["bound_ms"],
                      "bound_by": r50_masked_row["bound_by"]},

@@ -1,28 +1,42 @@
-"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase train|serve|eval|test|bulk``.
+"""Command-line entry point: ``python -m sat_tpu_torch.cli --phase train|serve|route|eval|test|bulk``.
 
-The port of ``sat_tpu.cli`` for the phases ported so far, which run on
-the card.  It takes the JAX CLI's flags for them (``--config``, ``--set
-key=value``, ``--model_file`` (a ``<step>.npz``, or a ``.npy`` the
-reference wrote), ``--load``, ``--train_cnn``, ``--load_cnn`` with
+The port of ``sat_tpu.cli``; every phase runs the port.  It takes the
+JAX CLI's flags for them (``--config``, ``--set key=value``,
+``--print_config``, ``--model_file`` (a ``<step>.npz``, or a ``.npy``
+the reference wrote), ``--load``, ``--train_cnn``, ``--load_cnn`` with
 ``--cnn_model_file`` (train only; eval and test ignore it, as in the JAX
 CLI), ``--beam_size``, ``--shard_cache``, ``--verify_shards``,
-``--sweep``, ``--encoder_quant`` (serve and bulk quantize; the other
-phases encode in full precision); for serve ``--port``,
-``--max_batch``, ``--max_wait_ms``, ``--serve_mode``,
-``--serve_decode_depth``; for bulk ``--bulk_input``, ``--bulk_output``,
-``--bulk_shard_rows``), so one config file and one override list drive
-both packages.
+``--anomaly_policy``, ``--keep_checkpoints``, ``--io_retries``,
+``--watchdog``, ``--sweep``, ``--encoder_quant`` (serve and bulk
+quantize; the other phases encode in full precision); for serve
+``--port``, ``--max_batch``, ``--max_wait_ms``, ``--serve_mode``,
+``--serve_decode_depth``; for route ``--replicas`` (which implies the
+phase), ``--num_replicas``, ``--straggler_factor`` and ``--port`` (the
+router's own); for bulk ``--bulk_input``, ``--bulk_output``,
+``--bulk_shard_rows``; ``--supervise`` with ``--max_restarts``), so one
+config file and one override list drive both packages.
 
-Exit codes: train exits 1 when a checkpoint it depends on did not land,
-and 0 after a graceful SIGTERM/SIGINT stop (resume with ``--load``);
-bulk exits 1 on an injected preemption (``SAT_FI_DIE_AT_STEP``; relaunch
-to resume) and 0 after a graceful stop; train and bulk exit 87 when the
-quarantine's systemic-corruption ceiling trips.  ``--repair_shards``
-rebuilds the shard-cache files holding rotted or quarantined rows,
-prints a JSON report and exits 0, or 2 when no cache exists; it touches
-no device.  Eval prints each score as ``name: value``; ``--sweep`` scores
-every checkpoint under save_dir and prints a ``step N: ...`` line for
-each.  ``--phase route`` and ``--supervise`` exit with "not ported yet".
+``--print_config`` prints the resolved Config as JSON and exits 0
+before anything else runs.  ``--supervise`` runs the same command in a
+child process and restarts it with ``--load`` when it crashes, is
+killed or is aborted by the watchdog (exit 86); ``--phase route``
+fronts serve replicas (spawned as ``--phase serve`` children of this
+CLI, or named by ``--replicas``).  Both parents are dispatched before
+anything imports torch, so neither holds a CUDA context: the children
+own the card.  ``SAT_TORCH_DEVICE=cpu`` in the environment asks every
+phase (and the children, which inherit it) for the CPU.
+
+Exit codes: train exits 1 when a checkpoint it depends on did not land
+or on an injected preemption (``SAT_FI_DIE_AT_STEP``; resume with
+``--load``), and 0 after a graceful SIGTERM/SIGINT stop; bulk exits 1 on
+an injected preemption (relaunch to resume) and 0 after a graceful
+stop; train and bulk exit 87 when the quarantine's systemic-corruption
+ceiling trips, and 86 when the watchdog aborts a wedged run.
+``--repair_shards`` rebuilds the shard-cache files holding rotted or
+quarantined rows, prints a JSON report and exits 0, or 2 when no cache
+exists; it touches no device.  Eval prints each score as ``name:
+value``; ``--sweep`` scores every checkpoint under save_dir and prints
+a ``step N: ...`` line for each.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ from typing import List, Optional
 
 from .config import Config
 
-PORTED_PHASES = ("train", "serve", "eval", "test", "bulk")
+PORTED_PHASES = ("train", "serve", "route", "eval", "test", "bulk")
 
 # the reference's misspelled config keys, accepted like the JAX CLI does
 _REFERENCE_KEY_ALIASES = {
@@ -68,7 +82,8 @@ def _parse_override(config: Config, key: str, raw: str):
 
 def build_config(argv: Optional[List[str]] = None):
     """Returns (Config, cli options: model_file, load, load_cnn,
-    cnn_model_file, sweep, repair_shards)."""
+    cnn_model_file, sweep, repair_shards, print_config, supervise,
+    max_restarts)."""
     p = argparse.ArgumentParser(
         prog="sat_tpu_torch", description="Show, Attend and Tell on PyTorch/CUDA"
     )
@@ -94,7 +109,58 @@ def build_config(argv: Optional[List[str]] = None):
     p.add_argument("--train_cnn", action="store_true", help="train: train the CNN too")
     p.add_argument(
         "--supervise", action="store_true",
-        help="restart a crashed run (not ported yet: exits)",
+        help="crash-only restart loop: keep this process torch-free and run "
+             "the work in a child; a child that crashes, is killed or is "
+             "aborted by the watchdog (exit 86) is relaunched with --load, "
+             "after a jittered exponential backoff, within a restart budget",
+    )
+    p.add_argument(
+        "--max_restarts", type=int, default=None, metavar="N",
+        help="--supervise restart budget (default Config.supervise_max_restarts)",
+    )
+    p.add_argument(
+        "--watchdog", type=float, default=None, metavar="SEC",
+        help="arm the hang watchdog with this poll interval (sets "
+             "watchdog_interval; per-phase deadlines via --set "
+             "watchdog_step_s=... etc.; 0 disables, the default)",
+    )
+    p.add_argument(
+        "--anomaly_policy", default=None, choices=["off", "warn", "skip", "rollback"],
+        help="anomaly sentinel's response to NaN/Inf or spiking metrics at "
+             "each log_every check: 'warn' (default) reports and stops "
+             "blessing LAST_GOOD, 'skip' also suppresses checkpoint writes "
+             "while unhealthy, 'rollback' restores LAST_GOOD and skips past "
+             "the poison step, 'off' disarms the sentinel",
+    )
+    p.add_argument(
+        "--keep_checkpoints", type=int, default=None, metavar="N",
+        help="checkpoint retention: keep the newest N plus the LAST_GOOD "
+             "target, delete the rest (default 0 = keep everything)",
+    )
+    p.add_argument(
+        "--io_retries", type=int, default=None, metavar="N",
+        help="retry budget for transient IO errors on checkpoint, shard, "
+             "manifest and caption reads and writes, with jittered "
+             "exponential backoff (default 3; 0 disables)",
+    )
+    p.add_argument(
+        "--print_config", action="store_true",
+        help="print the resolved Config as JSON and exit",
+    )
+    p.add_argument(
+        "--replicas", default=None, metavar="HOST:PORT,...",
+        help="route: front these pre-started serve replicas instead of "
+             "spawning a local fleet (implies --phase route)",
+    )
+    p.add_argument(
+        "--num_replicas", type=int, default=None, metavar="N",
+        help="route: size of the locally spawned replica fleet (ignored "
+             "with --replicas; default Config.route_num_replicas)",
+    )
+    p.add_argument(
+        "--straggler_factor", type=float, default=None, metavar="X",
+        help="fleet straggler threshold: name the worst replica when its "
+             "request p99 exceeds the fleet median by this factor (default 2.0)",
     )
     p.add_argument("--beam_size", type=int, default=None)
     p.add_argument(
@@ -122,7 +188,10 @@ def build_config(argv: Optional[List[str]] = None):
         help="eval phase: score every checkpoint under save_dir, writing "
              "<step>.txt dumps",
     )
-    p.add_argument("--port", type=int, default=None, help="serve: HTTP port (0 = ephemeral)")
+    p.add_argument(
+        "--port", type=int, default=None,
+        help="serve: HTTP port (0 = ephemeral); route: the router's port",
+    )
     p.add_argument("--max_batch", type=int, default=None, help="serve: most requests per batch")
     p.add_argument(
         "--max_wait_ms", type=float, default=None,
@@ -269,8 +338,6 @@ def build_config(argv: Optional[List[str]] = None):
         help="override any Config field, repeatable",
     )
     args = p.parse_args(argv)
-    if args.supervise:
-        raise SystemExit("sat_tpu_torch: --supervise is not ported yet; use python -m sat_tpu.cli")
     if args.sweep and (args.model_file or args.load):
         raise SystemExit(
             "--sweep scores every checkpoint under save_dir; it conflicts "
@@ -297,6 +364,20 @@ def build_config(argv: Optional[List[str]] = None):
         config = config.replace(encoder_quant=args.encoder_quant)
     if args.verify_shards is not None:
         config = config.replace(verify_shards=args.verify_shards)
+    if args.anomaly_policy is not None:
+        config = config.replace(anomaly_policy=args.anomaly_policy)
+    if args.keep_checkpoints is not None:
+        config = config.replace(keep_checkpoints=args.keep_checkpoints)
+    if args.io_retries is not None:
+        config = config.replace(io_retries=args.io_retries)
+    if args.straggler_factor is not None:
+        config = config.replace(straggler_factor=args.straggler_factor)
+    if args.replicas is not None:
+        # naming endpoints implies the route phase (before --port below,
+        # which binds the router in the route phase)
+        config = config.replace(phase="route", route_replicas=args.replicas)
+    if args.num_replicas is not None:
+        config = config.replace(route_num_replicas=args.num_replicas)
     if args.bulk_input is not None:
         config = config.replace(bulk_input=args.bulk_input)
     if args.bulk_output is not None:
@@ -304,7 +385,12 @@ def build_config(argv: Optional[List[str]] = None):
     if args.bulk_shard_rows is not None:
         config = config.replace(bulk_shard_rows=args.bulk_shard_rows)
     if args.port is not None:
-        config = config.replace(serve_port=args.port)
+        # one --port flag, two listeners: the router's own in the route
+        # phase, the replica's otherwise
+        if config.phase == "route":
+            config = config.replace(route_port=args.port)
+        else:
+            config = config.replace(serve_port=args.port)
     if args.max_batch is not None:
         config = config.replace(serve_max_batch=args.max_batch)
     if args.max_wait_ms is not None:
@@ -338,6 +424,8 @@ def build_config(argv: Optional[List[str]] = None):
         config = config.replace(serve_decode_depth=tuple(
             int(k) for k in args.serve_decode_depth.split(",") if k
         ))
+    if args.watchdog is not None:
+        config = config.replace(watchdog_interval=args.watchdog)
     overrides = {}
     for item in args.set:
         if "=" not in item:
@@ -355,12 +443,18 @@ def build_config(argv: Optional[List[str]] = None):
     return config, {
         "model_file": args.model_file, "load": args.load, "load_cnn": args.load_cnn,
         "cnn_model_file": args.cnn_model_file, "sweep": args.sweep,
-        "repair_shards": args.repair_shards,
+        "repair_shards": args.repair_shards, "print_config": args.print_config,
+        "supervise": args.supervise, "max_restarts": args.max_restarts,
     }
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     config, cli = build_config(argv)
+    if cli["print_config"]:
+        import json
+
+        print(json.dumps(config.to_dict(), indent=2, sort_keys=True))
+        return 0
     if cli["repair_shards"]:
         import json
 
@@ -377,11 +471,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 2
         print(json.dumps(report, indent=2, sort_keys=True))
         return 0
-    if config.phase not in PORTED_PHASES:
-        raise SystemExit(
-            f"sat_tpu_torch: phase {config.phase!r} is not ported yet "
-            f"(ported: {', '.join(PORTED_PHASES)}); use python -m sat_tpu.cli"
+    if cli["supervise"]:
+        # the supervisor parent never imports torch: it must outlive a
+        # child whose device runtime wedges, and holds no CUDA context of
+        # its own.  The child re-enters this CLI without --supervise.
+        from .resilience.supervisor import supervise
+
+        return supervise(
+            list(argv) if argv is not None else list(sys.argv[1:]),
+            max_restarts=(
+                cli["max_restarts"] if cli["max_restarts"] is not None
+                else config.supervise_max_restarts
+            ),
+            backoff_base_s=config.supervise_backoff_s,
         )
+    if config.phase == "route":
+        # torch-free for the same reason: the replicas it spawns re-enter
+        # this CLI in --phase serve and own the card
+        from .serve.router import route
+
+        return route(config)
     if config.phase == "serve":
         from .serve.server import serve
 
@@ -389,6 +498,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from . import runtime
     from .resilience import retry
+    from .resilience.faultinject import SimulatedPreemption
     from .resilience.quarantine import DATA_CORRUPTION_EXIT_CODE, SystemicCorruption
 
     retry.configure(config.io_retries, config.io_retry_base_s)
@@ -405,6 +515,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             # the run trained, but a checkpoint it depends on did not land
             print(f"sat_tpu_torch: WARNING: {e}", file=sys.stderr, flush=True)
             return 1
+        except SimulatedPreemption as e:
+            # an injected preemption: exit like the killed process it
+            # simulates; the supervisor relaunches with --load
+            print(f"sat_tpu_torch: {e}", file=sys.stderr, flush=True)
+            return 1
         except SystemicCorruption as e:
             # the data is rotten, not the process: a rerun re-reads the rot
             print(f"sat_tpu_torch: FATAL: {e}", file=sys.stderr, flush=True)
@@ -413,7 +528,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if config.phase == "bulk":
         from .bulk.runner import run_bulk
-        from .resilience.faultinject import SimulatedPreemption
 
         try:
             return run_bulk(config, model_file=cli["model_file"])

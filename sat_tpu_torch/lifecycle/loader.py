@@ -15,9 +15,11 @@ device memory is spent:
    checkpoint that lacks a tensor of the config or holds one of another
    shape (a tolerant partial restore is right for a training resume,
    wrong for a model that will serve);
-5. the engine's ``slot_params`` on its device: ``compute_params``, or
-   with ``encoder_quant`` on the quantized encoder (the float32 CNN
-   leaves the set once quantized), so the slot holds what the engine
+5. the engine's ``slot_params``: ``compute_params`` on its device, or
+   with ``encoder_quant`` the encoder folded and quantized on the device
+   one conv at a time from this host tree, so the candidate's float32
+   CNN never lands there whole (only its folded kernels, for the
+   calibration, and the decoder do), and the slot holds what the engine
    computed for the incumbent at load.
 
 It runs on the controller's thread (or the server's, for residents), so

@@ -99,10 +99,16 @@ def _bn_name_for(conv_name: str) -> str:
     return "bn_conv1" if conv_name == "conv1" else "bn" + conv_name[len("res"):]
 
 
-def folded_convs(params: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Tensor]]:
+def folded_convs(params: Dict[str, Any], config, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Flat {conv name: {'kernel' OIHW float32, 'bias' float32}} with
     ResNet50's frozen batch norms folded in; ``params`` holds ``cnn`` and,
-    for ResNet50, ``batch_stats``."""
+    for ResNet50, ``batch_stats``.  With ``device``, each conv and its
+    batch norm move there one at a time and fold there, so a tree on the
+    host puts only the folded kernels on the device."""
+
+    def on(t):
+        return t if t is None or device is None else t.to(device)
+
     convs: Dict[str, Dict[str, Any]] = {}
     _convs(params["cnn"], convs)
     bns: Dict[str, Dict[str, Any]] = {}
@@ -110,10 +116,10 @@ def folded_convs(params: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Te
     _bns(params.get("batch_stats", {}), bns)
     out = {}
     for name, leaves in convs.items():
-        kernel, bias = leaves["weight"].float(), leaves.get("bias")
+        kernel, bias = on(leaves["weight"]).float(), on(leaves.get("bias"))
         bn = bns.get(_bn_name_for(name)) if config.cnn == "resnet50" else None
         if bn is not None:
-            kernel, bias = fold_bn(kernel, bias, bn["scale"], bn["bias"], bn["mean"], bn["var"])
+            kernel, bias = fold_bn(kernel, bias, *(on(bn[k]) for k in ("scale", "bias", "mean", "var")))
         elif bias is None:
             bias = torch.zeros(kernel.shape[0], device=kernel.device)
         out[name] = {"kernel": kernel, "bias": bias.float()}
@@ -258,15 +264,16 @@ def calibrate(folded, config, batches: Iterable[np.ndarray]) -> Dict[str, float]
 
 
 @torch.inference_mode()
-def quantize_encoder(params: Dict[str, Any], config, batches: Optional[Iterable] = None):
-    """The ``qcnn`` tree for ``config.encoder_quant``, on the params' device:
-    flat {conv name: spec}, with spec ``{'kernel' bf16, 'bias' f32}``
-    (bf16) or ``{'kernel' int8, 'w_scale' f32 [cout], 'bias' f32 [cout],
+def quantize_encoder(params: Dict[str, Any], config, batches: Optional[Iterable] = None, device=None):
+    """The ``qcnn`` tree for ``config.encoder_quant``, folded, calibrated
+    and quantized on ``device`` (default: the params'): flat {conv name:
+    spec}, with spec ``{'kernel' bf16, 'bias' f32}`` (bf16) or
+    ``{'kernel' int8, 'w_scale' f32 [cout], 'bias' f32 [cout],
     'act_scale' float}`` (int8)."""
     mode = config.encoder_quant
     if mode == "off":
         raise ValueError("quantize_encoder called with encoder_quant='off'")
-    folded = folded_convs(params, config)
+    folded = folded_convs(params, config, device)
     if mode == "bf16":
         return {
             name: {

@@ -16,9 +16,13 @@ Hooks wired in the port so far: ``consume_decode_fault`` in
 ``ImageLoader.load_raw``, ``consume_caption_fault`` in the
 ``PrefetchLoader``, ``maybe_corrupt_shard_row`` in
 ``data.shards.resolve_shard_cache``, ``consume_io_fault`` in
-``resilience.retry.retry_io``, and ``maybe_kill`` / ``maybe_wedge`` /
-``maybe_slow`` in the bulk runner (its clock counts decode steps).  The
-train loop's and the serve loop's hooks are not wired yet.
+``resilience.retry.retry_io``, ``maybe_kill`` / ``maybe_wedge`` /
+``maybe_slow`` in the bulk runner (its clock counts decode steps) and in
+the train loop (with ``maybe_poison`` after each step), and
+``maybe_corrupt_checkpoint`` in the checkpoint writer; the serve
+batchers' ``maybe_wedge_serve`` / ``maybe_slow_serve`` /
+``maybe_slow_canary`` at the result drain, and
+``consume_quality_skew`` at the detok boundary.
 
 Knobs::
 
@@ -216,7 +220,8 @@ class FaultPlan:
         def poison(tree):
             if isinstance(tree, dict):
                 return {k: poison(v) for k, v in tree.items()}
-            return tree * float("nan")
+            # a fresh leaf that trains like the one it replaces
+            return (tree.detach() * float("nan")).requires_grad_(tree.requires_grad)
 
         return state._replace(params=poison(state.params)), poison(dict(metrics))
 

@@ -61,11 +61,13 @@ def backoff_delay(
     base_delay_s: float,
     max_delay_s: float = 2.0,
     jitter: Tuple[float, float] = (0.5, 1.5),
+    rng: Optional[random.Random] = None,
 ) -> float:
     """``base * 2**attempt`` capped at ``max_delay_s``, scaled by a uniform
-    draw from ``jitter``."""
+    draw from ``jitter`` (from ``rng``, else the module's own generator).
+    Shared by :func:`retry_io` and the crash-only supervisor."""
     delay = min(float(base_delay_s) * (2.0 ** attempt), max_delay_s)
-    return delay * _jitter_rng.uniform(*jitter)
+    return delay * (rng or _jitter_rng).uniform(*jitter)
 
 
 def is_retryable(exc: BaseException) -> bool:

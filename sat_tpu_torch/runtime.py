@@ -6,7 +6,9 @@
   ``log_every`` steps (the loop's one host sync) into ``metrics.jsonl``
   and tfevents, checkpoints every ``save_period`` steps through the
   async writer, the anomaly sentinel (warn, skip, rollback to
-  ``LAST_GOOD``), graceful SIGTERM/SIGINT and the progress watchdog;
+  ``LAST_GOOD``), graceful SIGTERM/SIGINT, the progress watchdog and
+  the ``SAT_FI_*`` fault hooks (kill, wedge, slow, NaN poison; the
+  checkpoint corruption hook sits in the checkpoint writer);
 * ``evaluate``: beam-search every image of the eval split, write
   ``results.json`` and score it with BLEU-1..4, METEOR, ROUGE-L and CIDEr;
   ``evaluate_sweep`` scores every checkpoint under ``save_dir``;
@@ -66,6 +68,7 @@ from .evalcap.eval import CocoEvalCap
 from .models.captioner import encode, init_variables
 from .ops.beam_search import BeamResult, beam_search
 from .resilience import lineage, retry
+from .resilience.faultinject import FaultPlan
 from .resilience.lineage import CheckpointWriteError
 from .resilience.preempt import GracefulShutdown
 from .resilience.quarantine import QuarantineManager, ledger_path_for
@@ -334,6 +337,7 @@ def train(
     loader = make_loader(config, dataset)
     retry.configure(config.io_retries, config.io_retry_base_s)
     sentinel = AnomalySentinel(config.anomaly_policy, config.anomaly_spike_factor)
+    plan = FaultPlan.from_env()
     async_writer = AsyncCheckpointWriter() if config.async_checkpoint else None
     ckpt_save = async_writer.save if async_writer else save_checkpoint
     wd = Watchdog(
@@ -375,12 +379,20 @@ def train(
                 try:
                     for batch in _watched_iter(feed, wd, "data_wait"):
                         with wd.phase("step"):
-                            if (config.max_steps and step >= config.max_steps) or shutdown.stop_requested:
+                            if config.max_steps and step >= config.max_steps:
+                                stopped = True
+                                break
+                            plan.maybe_kill(step)  # injected preemption (inert unarmed)
+                            plan.maybe_wedge(step)  # injected silent hang
+                            plan.maybe_slow(step)  # injected slow-but-alive step
+                            if shutdown.stop_requested:
                                 stopped = True
                                 break
                             with wd.phase("dispatch"):
                                 state, metrics = train_step(state, batch, step_generator(seed, step, dev))
                             step += 1
+                            # injected NaN update (inert unarmed): poisons params and metrics
+                            state, metrics = plan.maybe_poison(step, state, metrics)
                             if step % config.log_every == 0:
                                 host = _fetch(metrics)  # the loop's one host sync
                                 writer.scalars(step, host)

@@ -180,13 +180,17 @@ class ServeEngine:
         holds on this engine's device: ``compute_params``, or with
         ``encoder_quant`` on the quantized ``qcnn`` beside the decoder
         (the float32 CNN and ResNet50's statistics, folded into the conv
-        biases, leave it)."""
-        params = to_device(params, self.device)
-        batch_stats = to_device(batch_stats, self.device)
+        biases, leave it).  The encoder is folded and quantized on this
+        device one conv at a time, so a tree on the host (a candidate's)
+        never lands there whole: only its folded kernels, for the
+        calibration, and the decoder do."""
         if self.config.encoder_quant == "off":
+            params = to_device(params, self.device)
+            batch_stats = to_device(batch_stats, self.device)
             return compute_params(params, self.config, batch_stats)
-        qcnn = quantize_encoder({"cnn": params["cnn"], "batch_stats": batch_stats}, self.config)
-        out = {**compute_params({"decoder": params["decoder"]}, self.config), "qcnn": qcnn}
+        qcnn = quantize_encoder({"cnn": params["cnn"], "batch_stats": batch_stats}, self.config, device=self.device)
+        decoder = to_device({"decoder": params["decoder"]}, self.device)
+        out = {**compute_params(decoder, self.config), "qcnn": qcnn}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out

@@ -42,6 +42,7 @@ from ..config import Config
 from ..models import resnet50
 from ..models.vgg16 import VGG_LAYERS
 from ..resilience import lineage
+from ..resilience.faultinject import FaultPlan
 from ..resilience.lineage import CheckpointWriteError
 from ..resilience.retry import retry_io
 from ..utils.fileio import atomic_write
@@ -369,10 +370,11 @@ def compute_params(
 
 
 def to_device(node, device):
-    """The params tree (nested dicts of tensors) moved to ``device``."""
+    """The params tree (nested dicts of tensors) moved to ``device``; a
+    leaf that is not a tensor (a quantized conv's ``act_scale``) stays."""
     if isinstance(node, dict):
         return {k: to_device(v, device) for k, v in node.items()}
-    return node.to(device)
+    return node.to(device) if isinstance(node, torch.Tensor) else node
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +420,9 @@ def _write_flat(
         lambda: config.replace(global_step=step).save(os.path.join(save_dir, "config.json")),
         desc=f"write checkpoint config {save_dir}",
     )
+    # injection point: bit rot between the rename and the verify; the
+    # post-write verify must catch it and refuse to bless the file
+    FaultPlan.from_env().maybe_corrupt_checkpoint(path, step)
     lineage.finalize_save(save_dir, path, step, healthy=healthy, keep=config.keep_checkpoints)
 
 

@@ -300,11 +300,13 @@ def test_cli_builds_eval_and_test_configs(tmp_path):
     assert (config.phase, config.beam_size, config.shard_cache) == ("eval", 2, "off")
     assert (config.batch_size, config.max_eval_ann_num) == (20, 96)
     assert opts == {"model_file": None, "load": False, "load_cnn": False,
-                    "cnn_model_file": "./vgg16_no_fc.npy", "sweep": True, "repair_shards": False}
+                    "cnn_model_file": "./vgg16_no_fc.npy", "sweep": True, "repair_shards": False,
+                    "print_config": False, "supervise": False, "max_restarts": None}
     _, opts = cli.build_config(["--phase", "test", "--model_file", "5.npz", "--load", "--load_cnn",
                                 "--cnn_model_file", "r.npy"])
     assert opts == {"model_file": "5.npz", "load": True, "load_cnn": True,
-                    "cnn_model_file": "r.npy", "sweep": False, "repair_shards": False}
+                    "cnn_model_file": "r.npy", "sweep": False, "repair_shards": False,
+                    "print_config": False, "supervise": False, "max_restarts": None}
     path = str(tmp_path / "eval.json")
     config.replace(beam_size=4).save(path)
     config, opts = cli.build_config(["--config", path, "--sweep"])
@@ -348,8 +350,16 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
     assert calls == [("sweep",)]
     assert [line.split(":")[0] for line in out] == ["step 3", "step 7"]
     assert "Bleu_4=0.5000" in out[0] and "CIDEr=0.2500" in out[1]
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--phase", "route"])
+    # route and supervise reach the port's own parents (patched here)
+    from sat_tpu_torch.resilience import supervisor
+    from sat_tpu_torch.serve import router
+
+    monkeypatch.setattr(router, "route", lambda config: calls.append(("route", config.phase)) or 0)
+    monkeypatch.setattr(supervisor, "supervise", lambda argv, **kw: calls.append(("supervise", argv)) or 0)
+    calls.clear()
+    assert cli.main(["--phase", "route"]) == 0
+    assert cli.main(["--phase", "eval", "--supervise"]) == 0
+    assert calls == [("route", "route"), ("supervise", ["--phase", "eval", "--supervise"])]
 
 
 @pytest.mark.parametrize(

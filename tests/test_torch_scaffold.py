@@ -54,6 +54,40 @@ def test_import_loads_neither_jax_nor_sat_tpu():
     assert bad == "[]"
 
 
+# the router and the supervisor parent own no device: importing them, and
+# the CLI up to their dispatch, loads neither torch nor jax nor sat_tpu
+_PARENT_CODE = (
+    "import sys\n"
+    "{setup}\n"
+    "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'jax', 'jaxlib', 'sat_tpu'))\n"
+    "print(bad)\n"
+)
+_PARENTS = {
+    "modules": "import sat_tpu_torch.serve.router, sat_tpu_torch.serve.replica, "
+               "sat_tpu_torch.resilience.supervisor, sat_tpu_torch.telemetry.fleet",
+    "cli_route": "from sat_tpu_torch import cli\n"
+                 "from sat_tpu_torch.serve import router\n"
+                 "router.route = lambda config: 0\n"
+                 "assert cli.main(['--phase', 'route', '--num_replicas', '2']) == 0\n"
+                 "assert cli.main(['--replicas', '127.0.0.1:1,127.0.0.1:2']) == 0",
+    "cli_supervise": "from sat_tpu_torch import cli\n"
+                     "from sat_tpu_torch.resilience import supervisor\n"
+                     "supervisor.supervise = lambda argv, **kw: 0\n"
+                     "assert cli.main(['--phase', 'train', '--supervise', '--watchdog', '1']) == 0\n"
+                     "assert cli.main(['--phase', 'serve', '--supervise']) == 0",
+}
+
+
+@pytest.mark.parametrize("what", sorted(_PARENTS))
+def test_router_and_supervisor_parents_load_no_device_stack(what):
+    out = subprocess.run(
+        [sys.executable, "-c", _PARENT_CODE.format(setup=_PARENTS[what])],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_jax_or_sat_tpu(path):
     """A regex over the source: ``import sat_tpu``/``from sat_tpu`` (not
@@ -89,6 +123,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
     engine = engine_mod.ServeEngine(tc, state, vocab, device="cpu")
     assert engine.device == torch.device("cpu")
+    # a child process is asked for the CPU through SAT_TORCH_DEVICE: a
+    # request, not a fallback
+    monkeypatch.setenv("SAT_TORCH_DEVICE", "cpu")
+    assert resolve_device() == torch.device("cpu")
+    assert engine_mod.ServeEngine(tc, state, vocab).device == torch.device("cpu")
+    for bad in ("gpu", "cuda:0", "CPU"):
+        monkeypatch.setenv("SAT_TORCH_DEVICE", bad)
+        with pytest.raises(ValueError, match="SAT_TORCH_DEVICE"):
+            resolve_device()
+    monkeypatch.setenv("SAT_TORCH_DEVICE", "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    monkeypatch.delenv("SAT_TORCH_DEVICE")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
 
 
 @pytest.mark.parametrize(
@@ -203,9 +252,18 @@ def test_cli_serves_only_the_ported_phase(tmp_path):
     assert (config.phase, config.serve_port, config.serve_max_batch) == ("serve", 0, 4)
     assert (config.beam_size, config.serve_buckets, config.num_initialize_layers) == (2, (1, 4), 1)
     assert opts["model_file"] == "x.npz"
-    assert "train" in PORTED_PHASES
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--phase", "route"])
+    assert "train" in PORTED_PHASES and "route" in PORTED_PHASES
+    # --phase route and --supervise reach the port's router and supervisor
+    from sat_tpu_torch.resilience import supervisor
+    from sat_tpu_torch.serve import router
+
+    reached = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(router, "route", lambda c: reached.append(("route", c.route_num_replicas)) or 0)
+        mp.setattr(supervisor, "supervise", lambda argv, **kw: reached.append(("supervise", kw["max_restarts"])) or 0)
+        assert main(["--phase", "route", "--num_replicas", "3"]) == 0
+        assert main(["--phase", "serve", "--supervise", "--max_restarts", "2"]) == 0
+    assert reached == [("route", 3), ("supervise", 2)]
     with pytest.raises(SystemExit, match="unknown Config field"):
         build_config(["--set", "no_such_field=1"])
 
@@ -247,7 +305,10 @@ def test_tf32_is_off_once_a_card_is_resolved(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cudnn.allow_tf32
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert resolve_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    # the card resolves to its index, as a tensor on it names it
+    assert resolve_device() == torch.device("cuda", 0)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
     assert "allow_tf32" not in inspect.getsource(captioner)

@@ -268,8 +268,15 @@ def test_cli_train_needs_a_card_unless_patched_to_the_cpu(coco_fixture, tmp_path
     monkeypatch.setattr(runtime, "train", lost)
     assert cli.main(["--config", path]) == 1
     assert cli.build_config(["--config", path, "--train_cnn"])[0].train_cnn
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--config", path, "--supervise"])
+    # --supervise hands the same argv to the port's supervisor (patched)
+    from sat_tpu_torch.resilience import supervisor
+
+    seen = []
+    monkeypatch.setattr(supervisor, "supervise", lambda argv, **kw: seen.append((argv, kw)) or 0)
+    assert cli.main(["--config", path, "--supervise"]) == 0
+    assert seen == [(["--config", path, "--supervise"],
+                     {"max_restarts": config.supervise_max_restarts,
+                      "backoff_base_s": config.supervise_backoff_s})]
     # --load_cnn imports the pretrained CNN of --cnn_model_file (default
     # ./vgg16_no_fc.npy, absent here): the missing file's error, as in JAX
     monkeypatch.chdir(tmp_path)

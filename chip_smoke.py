@@ -105,8 +105,8 @@ Phases, each fatal on failure:
    the masked kernel launched and the unmasked not, the heartbeat's
    ``bulk/*`` gauges; a run killed by ``SAT_FI_DIE_AT_STEP`` at half the
    control's decode steps with ``--blackbox`` (a postmortem bundle),
-   relaunched: the output directory bitwise the control's; a second
-   relaunch: "nothing to do".  Then one shard decoded in-process under torch.profiler: the card's busy share.
+   relaunched: the output directory bitwise the control's.  Then one
+   shard decoded in-process under torch.profiler: the card's busy share.
 14a. serve planes — the flagship in-process, telemetry on: (1) the encode
    cache: one image's contexts at widths 1/4/16/32 compared first, then
    36 lone requests over 12 JPEGs in one seeded order, cache off and on,
@@ -128,8 +128,8 @@ Phases, each fatal on failure:
    Retry-After and scope tenant; (5) quality on, window 32: 40 requests,
    /quality_reference 200, the /stats quality block, the lone-request
    p50 off and on in turns; ``--phase bulk`` with quality on over the
-   steady fixture's first 64 files killed at half its decode steps and
-   relaunched: bitwise.  B1 and B2 counted on every part.
+   steady fixture's first 64 files: a quality block on every row.  B1
+   and B2 counted on every part.
 14b. route — ``python -m sat_tpu_torch.cli --phase route --num_replicas
    2`` over the flagship checkpoint, once in batch mode (B1 in the
    replicas) and once in continuous mode (B2), replicas on free ports:
@@ -139,10 +139,11 @@ Phases, each fatal on failure:
    behind a lead (counted against that server's burst, not required:
    the bf16 encode depends on the batch geometry); p50s beside the
    single server's; each id once in the router's ``access.jsonl`` and
-   in exactly one replica's; r1 SIGKILLed in a burst of 32 once it
-   holds requests (32 answered 200, at least one retried, the fleet
-   view showing r1 unreachable), then respawned by the command the
-   fleet spawns it with (``LocalFleet.replica_argv``); ``POST /drain?replica=r0`` (r0 exits, 6 requests all answered
+   in exactly one replica's; in batch mode (the router is the same in
+   both) r1 SIGKILLed in a burst of 32 once it holds requests (32
+   answered 200, at least one retried, the fleet view showing r1
+   unreachable), then respawned by the command the fleet spawns it with
+   (``LocalFleet.replica_argv``); ``POST /drain?replica=r0`` (r0 exits, 6 requests all answered
    by r1) and ``/undrain``; SIGTERM: the router exits 0 and no replica
    it started is left.  The replicas' kernel counts come from their
    ``/stats``, read at readiness and at each one's end.
@@ -157,10 +158,10 @@ Phases, each fatal on failure:
    (dropout 0.5/0.3, Adam 1e-4, clip 5, batch 20, frozen CNN, async
    checkpoints) on the eval steady fixture with two captions an image
    (800 pairs): ``python -m sat_tpu_torch.cli --phase train`` in a fresh
-   process for 60 steps (checkpoints 20, 40, 60 verify, LAST_GOOD 60,
-   finite metrics, the loss falls, no kernel launched); ``--load`` to 80
-   (resumes at 60, 80.npz holds 60.npz's names); ``--phase test`` on 7
-   JPEGs with 80.npz.  The 60-step run has ``--telemetry --blackbox
+   process for 30 steps (checkpoints 10, 20, 30 verify, LAST_GOOD 30,
+   finite metrics, the loss falls, no kernel launched); ``--load`` to 40
+   (resumes at 30, 40.npz holds 30.npz's names); ``--phase test`` on 7
+   JPEGs with 40.npz.  The 30-step run has ``--telemetry --blackbox
    --diag_level full --metrics_port`` and a ``profile_dir``: the trace,
    a breakdown within 5%, ``telemetry.jsonl`` one row a boundary with
    finite ``diag/*``, ``diag/*`` columns in metrics.jsonl, a final
@@ -179,7 +180,7 @@ Phases, each fatal on failure:
    peak memory.  Before it, ``torch.cuda.memory_allocated()``, the
    allocator's ``memory_stats`` and the largest live CUDA tensors.
 16a. supervise — the flagship trained 6 steps through the CLI on a
-   40-JPEG fixture (a control), then the same under ``--supervise``
+   40-JPEG fixture (a control), beside the same under ``--supervise``
    with ``SAT_FI_WEDGE_AT_STEP=5`` and ``--watchdog 0.2`` (a 5 s step
    deadline) and ``--blackbox``: the child aborted with exit 86, a stack
    dump and a postmortem bundle, one restart from LAST_GOOD 3,
@@ -226,6 +227,44 @@ Phases, each fatal on failure:
    folded on the card one conv at a time, and through the lifecycle
    loader, with the seconds and the rise of peak device memory of the
    first two.
+
+23. mesh train — parallel training and mesh decode over torch.distributed,
+   two ranks sharing this card under gloo (NCCL refuses two ranks on one
+   device): one ``python -m torch.distributed.run --standalone
+   --nproc_per_node 2`` launch over the port's CLI (``MESH_HARNESS`` runs
+   each argument list through ``cli.main`` in the same two ranks, which
+   form each mesh's groups in turn, and counts per rank and list) trains
+   the flagship (``Config``'s training defaults, bf16) 6 steps on the
+   eval fixture at global batch 20 with ``--fleet_telemetry`` and the 5th
+   step profiled on each mesh: (2,1), then (1,2), then (1,2) with
+   ``context_parallel=2``; after each, ``--phase eval`` in the same
+   ranks (the (2,1) run's 6.npz throughout; the context-parallel one in
+   float32 and bf16).  Rank 0 must report the shared-card gloo choice.
+   Then one process (the reference): the same training, the (2,1) 6.npz
+   evaluated at the ranks' batch of 10, in float32 and at batch 20, and
+   the (2,1) 6.npz resumed for 2 more steps (the elastic phase's run).
+   Held for (2,1): losses within 1e-4 and gradient norms within 1e-3
+   relative at every step, at least 85% of 6.npz's parameter elements
+   within 1e-6 of the reference's (``train_parity``), every leaf bitwise
+   equal across the ranks, ``fleet.json`` with both rows, B1 once a
+   decode step in each rank, results.json the reference's eval of the
+   same 6.npz at batch 10 (and counted against batch 20).  Each rank's
+   median step (the fleet rows), its share of the profiled step inside
+   all_reduce and its peak memory are printed for every mesh.
+24. vocab parallel — the (1,2) run: the embedding rows and the last
+   decode layer's columns a block a rank, the gathered 6.npz full width,
+   the (2,1) run's limits against the reference, the replicated leaves
+   bitwise equal, its
+   eval's words the reference's batch-20 eval of the same 6.npz.
+25. context parallel — the (1,2) ``context_parallel=2`` run: the loss
+   falls, both ranks' leaves bitwise equal; the (2,1) 6.npz decoded in
+   float32 (words the reference's float32 eval's) and in bf16 (caption
+   parity: at least 90% of the captions and every score within 0.05).
+   The context-parallel attend is plain tensor code (as the JAX
+   package's is), so B1 does not run there.
+26. elastic — the reference's resume of the (2,1) 6.npz in one process:
+   ``ckpt/elastic_restores`` 1 in its heartbeat and the stderr line, the
+   6.npz sidecar recording 2 processes and mesh [2, 1], 8.npz one.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
@@ -1868,7 +1907,7 @@ def bulk_phase(torch, np, tmp: str, card: str):
     depths 1/2/4/8, heartbeat every 10 s), each run in a fresh process:
     a control run; a run killed by ``SAT_FI_DIE_AT_STEP`` at half the
     control's decode steps, relaunched: the output directory bitwise the
-    control's; a second relaunch: "nothing to do".  Then one shard decoded
+    control's.  Then one shard decoded
     in-process, once warm and once under torch.profiler: the card's busy
     share.  Returns the B2 launches of the CLI runs."""
     from torch.profiler import ProfilerActivity, profile
@@ -1962,14 +2001,10 @@ def bulk_phase(torch, np, tmp: str, card: str):
     if bulk_outputs(killed.bulk_output) != bulk_outputs(control.bulk_output):
         diff = [n for n, b in bulk_outputs(killed.bulk_output).items() if out.get(n) != b]
         fail(f"bulk resume: output files differ from the uninterrupted run's: {diff}")
-    _, again = run("killed", "bulk resume again")
-    if "nothing to do" not in again["stderr"] or again["masked"] != 0:
-        fail(f"bulk resume again: expected nothing to do:\n{again['stderr'][-1000:]}")
     print(f"bulk kill on {card}: SAT_FI_DIE_AT_STEP={steps // 2} of {steps} with --blackbox exited 1 after "
           f"{kill_tally['wall_s']:.2f}s with {len(done)} shard(s) committed and a postmortem bundle "
           f"({sorted(os.listdir(bundles[0]))}); the relaunch "
-          f"({resumed['wall_s']:.2f}s) left the output directory bitwise the uninterrupted run's; a "
-          f"second relaunch: nothing to do ({again['wall_s']:.2f}s)", flush=True)
+          f"({resumed['wall_s']:.2f}s) left the output directory bitwise the uninterrupted run's", flush=True)
 
     # one shard, in-process: the card's busy share of its decode
     tel = telemetry.enable()
@@ -2462,8 +2497,8 @@ def quality_part(torch, np, fa, config, card: str, bodies, off_engine, corpus_di
     ``/quality_reference`` 200 and a ``quality`` block in /stats; the p50
     of lone requests with quality off and on, in turns; ``--phase bulk``
     with quality on over the steady fixture's first 64 files (2 shards
-    of 32) killed at half its decode steps and relaunched: the rows
-    bitwise the uninterrupted run's, ``quality`` included."""
+    of 32): every row carries its ``quality`` block.  (The bulk phase
+    holds a killed and relaunched run bitwise.)"""
     from sat_tpu_torch import telemetry
 
     root = os.path.join(os.path.dirname(config.save_dir), "planes_quality")
@@ -2520,16 +2555,9 @@ def quality_part(torch, np, fa, config, card: str, bodies, off_engine, corpus_di
         fail(f"quality bulk: {len(rows)} rows, first {rows[:1]}")
     if tally["masked"] == 0 or tally["launches"] != 0:
         fail(f"quality bulk: launches {tally}")
-    with open(os.path.join(control.summary_dir, "telemetry", "heartbeat.json")) as f:
-        steps = json.load(f)["bulk"]["decode_steps"]
-    killed, kill_tally = run("killed", "quality bulk kill", rc=1, env={"SAT_FI_DIE_AT_STEP": str(steps // 2)})
-    _, resumed = run("killed", "quality bulk resume")
-    if bulk_outputs(killed.bulk_output) != out:
-        fail("quality bulk: the relaunched run's output is not bitwise the uninterrupted run's")
     print(f"quality bulk on {card}: {PLANES_BULK} files in 2 shards with serve_quality on: every row carries "
-          f"{sorted(keys)}; killed at step {steps // 2} of {steps} and relaunched: output bitwise the "
-          f"uninterrupted run's; sample {json.dumps(rows[0]['quality'])}", flush=True)
-    return b1, tally["masked"] + kill_tally["masked"] + resumed["masked"]
+          f"{sorted(keys)}; sample {json.dumps(rows[0]['quality'])}", flush=True)
+    return b1, tally["masked"]
 
 
 def serve_planes_phase(torch, np, fa, config, card: str, tmp: str):
@@ -2668,7 +2696,7 @@ def train_reference_phase(torch, np, fa):
           f"{config.max_caption_length} times (T); the kernel refused a grad-requiring input", flush=True)
 
 
-TRAIN_STEPS, TRAIN_SAVE, TRAIN_LOG = 60, 20, 10
+TRAIN_STEPS, TRAIN_SAVE, TRAIN_LOG, TRAIN_RESUMED = 30, 10, 5, 40
 
 
 def train_config(steady_root: str, tmp: str):
@@ -2707,10 +2735,10 @@ def metrics_rows(np, config, where: str):
 
 def train_phase(np, config, card: str):
     """``python -m sat_tpu_torch.cli --phase train --config train.json`` in
-    a fresh process at full width, 60 steps: exit 0, the train step
-    launches neither kernel, 20/40/60.npz verify, LAST_GOOD 60, every
-    metrics row finite and the loss falls; then ``--load`` to step 80 (the
-    resume starts at 60, 80.npz holds the names 60.npz holds); then
+    a fresh process at full width, 30 steps: exit 0, the train step
+    launches neither kernel, 10/20/30.npz verify, LAST_GOOD 30, every
+    metrics row finite and the loss falls; then ``--load`` to step 40 (the
+    resume starts at 30, 40.npz holds the names 30.npz holds); then
     ``--phase test`` on 7 JPEGs with the trained checkpoint."""
     import csv
 
@@ -2720,7 +2748,9 @@ def train_phase(np, config, card: str):
     write_vocabulary(np, config.vocabulary_file, config.vocabulary_size, caption_words())
     path = os.path.join(os.path.dirname(config.save_dir), "train.json")
     config.save(path)
-    # the observability knobs on: a /metrics scrape and a SIGUSR2 while it runs
+    # the observability knobs on: a /metrics scrape and a SIGUSR2 while it runs;
+    # the profile_dir window (steps 1-3) closes before the first log boundary
+    # (step 5), where the SIGUSR2 capture starts: two live captures refuse
     tdir, pdir = os.path.join(os.path.dirname(config.save_dir), "tel"), os.path.join(
         os.path.dirname(config.save_dir), "prof")
     port = free_base_port(1)
@@ -2730,13 +2760,14 @@ def train_phase(np, config, card: str):
     tally, stdout = run_cli(["--phase", "train", "--config", path, "--telemetry", "--blackbox", "--diag_level",
                              "full", "--metrics_port", str(port), "--heartbeat_interval", "1", "--set",
                              f"telemetry_dir={tdir}", "--set", f"profile_dir={pdir}", "--set",
-                             "profile_window_ms=1000"], "train")
+                             "profile_start_step=1", "--set", "profile_window_ms=1000"], "train")
     poker.join(timeout=30)
     if tally["launches"] or tally["masked"]:
         fail(f"train: the train loop launched fused_attend {tally['launches']} / masked "
              f"{tally['masked']} times")
     steps = lineage.checkpoint_steps(config.save_dir)
-    if steps != [20, 40, 60] or lineage.last_good_step(config.save_dir) != TRAIN_STEPS:
+    if steps != list(range(TRAIN_SAVE, TRAIN_STEPS + 1, TRAIN_SAVE)) or lineage.last_good_step(
+            config.save_dir) != TRAIN_STEPS:
         fail(f"train: checkpoints {steps}, LAST_GOOD {lineage.last_good_step(config.save_dir)}")
     for step in steps:
         ok, reason = lineage.verify_checkpoint(os.path.join(config.save_dir, f"{step}.npz"))
@@ -2745,34 +2776,37 @@ def train_phase(np, config, card: str):
     rows = metrics_rows(np, config, "train")
     if [r["step"] for r in rows] != list(range(TRAIN_LOG, TRAIN_STEPS + 1, TRAIN_LOG)):
         fail(f"train: metrics.jsonl steps {[r['step'] for r in rows]}")
-    # 6 logged rows: the mean of the last 3 (steps 40-60) against the first 3
+    # 6 logged rows: the mean of the last 3 (steps 20-30) against the first 3
     losses = [r["total_loss"] for r in rows]
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
     if not last < first:
         fail(f"train: total_loss did not fall: {losses}")
     print(f"train flagship on {card}: {TRAIN_STEPS} steps through the CLI in {tally['wall_s']:.2f}s "
-          f"(process start to exit, telemetry, recorder and diag full on); total_loss at steps 10..60 "
+          f"(process start to exit, telemetry, recorder and diag full on); total_loss at steps {TRAIN_LOG}..{TRAIN_STEPS} "
           f"{[round(x, 4) for x in losses]} (mean {first:.4f} -> {last:.4f}); checkpoints {steps} verify, "
-          f"LAST_GOOD 60; fused_attend launches 0, masked 0", flush=True)
+          f"LAST_GOOD {TRAIN_STEPS}; fused_attend launches 0, masked 0", flush=True)
     train_artifacts(config, tdir, pdir, rows, poked, card)
 
-    resumed, stdout = run_cli(["--phase", "train", "--config", path, "--load", "--set", "max_steps=80"],
+    resumed, stdout = run_cli(["--phase", "train", "--config", path, "--load", "--set", f"max_steps={TRAIN_RESUMED}"],
                               "train resume")
-    if "(step 60)" not in stdout:
-        fail(f"train resume: did not restore step 60:\n{stdout[-2000:]}")
+    if f"(step {TRAIN_STEPS})" not in stdout:
+        fail(f"train resume: did not restore step {TRAIN_STEPS}:\n{stdout[-2000:]}")
     rows = metrics_rows(np, config, "train resume")
-    if [r["step"] for r in rows][-2:] != [70, 80] or lineage.last_good_step(config.save_dir) != 80:
+    if [r["step"] for r in rows][-2:] != [TRAIN_RESUMED - TRAIN_LOG, TRAIN_RESUMED] or lineage.last_good_step(
+            config.save_dir) != TRAIN_RESUMED:
         fail(f"train resume: metrics steps {[r['step'] for r in rows]}, LAST_GOOD "
              f"{lineage.last_good_step(config.save_dir)}")
-    names60 = set(load_flat(os.path.join(config.save_dir, "60.npz")))
-    names80 = set(load_flat(os.path.join(config.save_dir, "80.npz")))
-    if names60 != names80:
-        fail(f"train resume: 80.npz names differ from 60.npz's: {sorted(names60 ^ names80)[:6]}")
-    print(f"train resume on {card}: --load from step 60 to 80 in {resumed['wall_s']:.2f}s; 80.npz holds "
-          f"the {len(names80)} names of 60.npz; total_loss at 70, 80: "
+    names = set(load_flat(os.path.join(config.save_dir, f"{TRAIN_STEPS}.npz")))
+    resumed_names = set(load_flat(os.path.join(config.save_dir, f"{TRAIN_RESUMED}.npz")))
+    if names != resumed_names:
+        fail(f"train resume: {TRAIN_RESUMED}.npz names differ from {TRAIN_STEPS}.npz's: "
+             f"{sorted(names ^ resumed_names)[:6]}")
+    print(f"train resume on {card}: --load from step {TRAIN_STEPS} to {TRAIN_RESUMED} in {resumed['wall_s']:.2f}s; "
+          f"{TRAIN_RESUMED}.npz holds the {len(resumed_names)} names of {TRAIN_STEPS}.npz; total_loss at "
+          f"{TRAIN_RESUMED - TRAIN_LOG}, {TRAIN_RESUMED}: "
           f"{[round(r['total_loss'], 4) for r in rows[-2:]]}", flush=True)
 
-    model = os.path.join(config.save_dir, "80.npz")
+    model = os.path.join(config.save_dir, f"{TRAIN_RESUMED}.npz")
     test_cfg = os.path.join(os.path.dirname(config.save_dir), "test.json")
     config.replace(phase="test", max_steps=0).save(test_cfg)
     tested, _ = run_cli(["--config", test_cfg, "--model_file", model], "train test")
@@ -2781,7 +2815,7 @@ def train_phase(np, config, card: str):
         captions = list(csv.DictReader(f))
     if len(captions) != 7:
         fail(f"train test: results.csv has {len(captions)} rows, expected 7")
-    print(f"train test on {card}: --phase test with the trained 80.npz on 7 JPEGs, results.csv 7 rows; "
+    print(f"train test on {card}: --phase test with the trained {TRAIN_RESUMED}.npz on 7 JPEGs, results.csv 7 rows; "
           f"fused_attend launches {tested['launches']} over {tested['steps']} steps; sample "
           f"{captions[0]['caption']!r}", flush=True)
     return tested["launches"]
@@ -2854,7 +2888,7 @@ def train_artifacts(config, tdir: str, pdir: str, rows, poked: dict, card: str) 
     last = diag[-1]
     print(f"train telemetry on {card}: breakdown " + ", ".join(
         f"{k} {p['total_s']:.3f}s" for k, p in report["phases"].items()) + f" of {report['wall_s']:.3f}s; "
-        f"telemetry.jsonl {len(tel_rows)} rows with {len(last)} finite diag gauges (step 60: param_norm "
+        f"telemetry.jsonl {len(tel_rows)} rows with {len(last)} finite diag gauges (step {TRAIN_STEPS}: param_norm "
         f"{last['diag/param_norm']:.4f}, update_ratio {last['diag/update_ratio']:.3e}, attn_entropy_frac "
         f"{last['diag/attn_entropy_frac']:.4f}, alpha_coverage_dev {last['diag/alpha_coverage_dev']:.4f}, "
         f"grad_nonfinite {last['diag/grad_nonfinite']:.0f}); heartbeat supervisor/restarts 0, "
@@ -2914,8 +2948,8 @@ def train_steady_phase(torch, np, fa, config, card: str):
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     real = runtime.make_train_step
 
-    def timed_step(cfg):
-        step = real(cfg)
+    def timed_step(cfg, mesh=None):
+        step = real(cfg, mesh)
 
         def run(state, batch, generator):
             if state.step == warm + timed:
@@ -3020,8 +3054,8 @@ def timed_train(torch, config, warm: int, timed: int):
     ends = []
     real = runtime.make_train_step
 
-    def timed_step(cfg):
-        step = real(cfg)
+    def timed_step(cfg, mesh=None):
+        step = real(cfg, mesh)
 
         def run(state, batch, generator):
             out = step(state, batch, generator)
@@ -3280,8 +3314,8 @@ def resnet50_train_phase(torch, np, tmp: str, card: str):
     ends = []
     real = runtime.make_train_step
 
-    def timed_step(cfg):
-        step = real(cfg)
+    def timed_step(cfg, mesh=None):
+        step = real(cfg, mesh)
 
         def run(state, batch, generator):
             out = step(state, batch, generator)
@@ -3802,40 +3836,44 @@ def route_phase(torch, np, config, card: str, mode: str, tmp: str):
 
         wait_for(stitched, 10, f"{where}: request ids do not stitch across the router and one replica")
 
-        # SIGKILL r1 mid-burst: every request still answered, through the one retry
-        counts["r1"][1] = replica_counts(ports["r1"], where)
-        retries0 = get_stats(rport)["counters"].get("route/retries", 0)
-        result = {}
-        sender = threading.Thread(target=lambda: result.update(
-            zip(("lead", "burst"), post_all(rport, bodies[4:35], lead=bodies[35]))))
-        sender.start()
-        # killed while it holds requests, so the router has some to retry
-        wait_for(lambda: healthz(ports["r1"])[1]["in_flight"] > 0, 30,
-                 f"{where}: r1 never held a request of the burst", poll_s=0.005)
-        os.kill(pids["r1"], signal.SIGKILL)
-        sender.join(timeout=600)
-        codes = [r[0] for r in result.get("burst", [])] + [result["lead"][0]] if "lead" in result else []
-        if len(codes) != 32 or any(c != 200 for c in codes):
-            fail(f"{where}: a request failed while r1 was killed: {codes}")
-        retries = get_stats(rport)["counters"].get("route/retries", 0) - retries0
-        if retries < 1:
-            fail(f"{where}: r1 was killed holding requests, yet the router retried none")
-        wait_for(lambda: get_stats(rport)["replicas"]["r1"]["reachable"] is False, 10,
-                 f"{where}: the fleet view does not show the killed r1 unreachable")
-        # respawn it as the fleet respawns it: its command on its port
-        t1 = time.perf_counter()
-        log = open(os.path.join(root, "respawn_r1.log"), "w")
-        own["r1"] = subprocess.Popen(
-            LocalFleet.replica_argv(fleet_dir, 1),
-            cwd=here, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
-        )
-        log.close()
-        wait_for(lambda: routable(rport, 2), 300, f"{where}: the respawned r1 did not come back routable")
-        respawn_s = time.perf_counter() - t1
-        counts["r1'"] = [replica_counts(ports["r1"], where), None]
-        print(f"{where}: r1 SIGKILLed in a burst of 32 while holding requests: 32/32 answered 200, "
-              f"route/retries +{retries}; the fleet view showed r1 unreachable; respawned r1 routable again in "
-              f"{respawn_s:.2f}s", flush=True)
+        # SIGKILL r1 mid-burst (batch mode; the router is the same in both):
+        # every request still answered, through the one retry
+        last_r1 = "r1"
+        if mode == "batch":
+            counts["r1"][1] = replica_counts(ports["r1"], where)
+            retries0 = get_stats(rport)["counters"].get("route/retries", 0)
+            result = {}
+            sender = threading.Thread(target=lambda: result.update(
+                zip(("lead", "burst"), post_all(rport, bodies[4:35], lead=bodies[35]))))
+            sender.start()
+            # killed while it holds requests, so the router has some to retry
+            wait_for(lambda: healthz(ports["r1"])[1]["in_flight"] > 0, 30,
+                     f"{where}: r1 never held a request of the burst", poll_s=0.005)
+            os.kill(pids["r1"], signal.SIGKILL)
+            sender.join(timeout=600)
+            codes = [r[0] for r in result.get("burst", [])] + [result["lead"][0]] if "lead" in result else []
+            if len(codes) != 32 or any(c != 200 for c in codes):
+                fail(f"{where}: a request failed while r1 was killed: {codes}")
+            retries = get_stats(rport)["counters"].get("route/retries", 0) - retries0
+            if retries < 1:
+                fail(f"{where}: r1 was killed holding requests, yet the router retried none")
+            wait_for(lambda: get_stats(rport)["replicas"]["r1"]["reachable"] is False, 10,
+                     f"{where}: the fleet view does not show the killed r1 unreachable")
+            # respawn it as the fleet respawns it: its command on its port
+            t1 = time.perf_counter()
+            log = open(os.path.join(root, "respawn_r1.log"), "w")
+            own["r1"] = subprocess.Popen(
+                LocalFleet.replica_argv(fleet_dir, 1),
+                cwd=here, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+            )
+            log.close()
+            wait_for(lambda: routable(rport, 2), 300, f"{where}: the respawned r1 did not come back routable")
+            respawn_s = time.perf_counter() - t1
+            counts["r1'"] = [replica_counts(ports["r1"], where), None]
+            last_r1 = "r1'"
+            print(f"{where}: r1 SIGKILLed in a burst of 32 while holding requests: 32/32 answered 200, "
+                  f"route/retries +{retries}; the fleet view showed r1 unreachable; respawned r1 routable again in "
+                  f"{respawn_s:.2f}s", flush=True)
 
         # drain r0: the router SIGTERMs it and sends everything to r1; then undrain
         counts["r0"][1] = replica_counts(ports["r0"], where)
@@ -3854,7 +3892,7 @@ def route_phase(torch, np, config, card: str, mode: str, tmp: str):
         status, _, raw = http(rport, "POST", "/undrain?replica=r0")
         if status != 200 or get_stats(rport)["replicas"]["r0"]["drain_state"] != "in":
             fail(f"{where}: POST /undrain?replica=r0 gave {status} {raw!r}")
-        counts["r1'"][1] = replica_counts(ports["r1"], where)
+        counts[last_r1][1] = replica_counts(ports["r1"], where)
         print(f"{where}: POST /drain?replica=r0 -> r0 exited (SIGTERM drain), 6/6 requests answered by "
               f"r1; POST /undrain -> r0 back 'in' rotation", flush=True)
 
@@ -3869,9 +3907,10 @@ def route_phase(torch, np, config, card: str, mode: str, tmp: str):
             fail(f"{where}: the router exited {rc} on SIGTERM:\n{tail()}")
         if any(pid_alive(pid) for pid in pids.values()):
             fail(f"{where}: a replica the router started outlived it: {pids}")
-        own["r1"].send_signal(signal.SIGTERM)
-        if own["r1"].wait(timeout=60) != 0:
-            fail(f"{where}: the respawned r1 exited {own['r1'].returncode} on SIGTERM")
+        if "r1" in own:
+            own["r1"].send_signal(signal.SIGTERM)
+            if own["r1"].wait(timeout=60) != 0:
+                fail(f"{where}: the respawned r1 exited {own['r1'].returncode} on SIGTERM")
     finally:
         stop_groups([proc, *own.values()])
         for f in logs:
@@ -3884,14 +3923,15 @@ def route_phase(torch, np, config, card: str, mode: str, tmp: str):
         d1, d2 = end[0] - start[0], end[1] - start[1]
         b1, b2 = b1 + d1, b2 + d2
         print(f"{where} replica {name}: fused_attend launches {d1}, masked {d2} (its /stats, from "
-              f"readiness to its end; r1's launches after its kill are lost)", flush=True)
+              f"readiness to its end" + ("; r1's launches after its kill are lost)" if mode == "batch" else ")"),
+              flush=True)
     if (mode == "batch" and b1 == 0) or (mode == "continuous" and b2 == 0):
         fail(f"{where}: the replicas launched B1 {b1} and B2 {b2} times")
     return b1, b2
 
 
 def supervise_phase(np, tmp: str, card: str):
-    """The flagship trained 6 steps through the CLI (a control), then the
+    """The flagship trained 6 steps through the CLI (a control), beside the
     same run under ``--supervise`` with ``SAT_FI_WEDGE_AT_STEP=5`` and the
     watchdog armed by ``--watchdog``: the child is aborted with exit 86
     and a stack dump, the supervisor restarts it once from LAST_GOOD (3)
@@ -3910,36 +3950,43 @@ def supervise_phase(np, tmp: str, card: str):
         watchdog_checkpoint_s=120.0, watchdog_grace_s=0.3, supervise_backoff_s=0.1,
     )
     write_vocabulary(np, base.vocabulary_file, base.vocabulary_size, caption_words())
-    runs = {}
-    for name in ("control", "supervised"):
-        d = os.path.join(root, name)
-        cfg = base.replace(save_dir=os.path.join(d, "models"), summary_dir=os.path.join(d, "summary"),
-                           temp_annotation_file=os.path.join(d, "anns.csv"),
-                           temp_data_file=os.path.join(d, "data.npy"))
-        os.makedirs(d)
-        path = os.path.join(d, "train.json")
-        cfg.save(path)
-        args = ["--config", path, "--watchdog", "0.2"] + (["--supervise", "--blackbox"] if name == "supervised"
-                                                          else [])
-        env = {**os.environ, "SAT_FI_WEDGE_AT_STEP": "5"} if name == "supervised" else None
-        t0 = time.perf_counter()
-        # a group of its own: the supervisor's child goes down with it
-        proc = subprocess.Popen([sys.executable, "-m", "sat_tpu_torch.cli", *args], cwd=here, env=env,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                start_new_session=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            stop_groups([proc])
-            fail(f"{where} {name}: did not finish within 600s")
-        finally:
-            stop_groups([proc])
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"{where} {name}: exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
-        if lineage.last_good_step(cfg.save_dir) != 6:
-            fail(f"{where} {name}: LAST_GOOD {lineage.last_good_step(cfg.save_dir)}, expected 6")
-        runs[name] = (cfg, wall, stderr)
+    # the control and the supervised run side by side (the card time-slices
+    # them): the numbers do not depend on it, and the phase takes one wall
+    runs, procs = {}, {}
+    try:
+        for name in ("control", "supervised"):
+            d = os.path.join(root, name)
+            cfg = base.replace(save_dir=os.path.join(d, "models"), summary_dir=os.path.join(d, "summary"),
+                               temp_annotation_file=os.path.join(d, "anns.csv"),
+                               temp_data_file=os.path.join(d, "data.npy"))
+            os.makedirs(d)
+            path = os.path.join(d, "train.json")
+            cfg.save(path)
+            args = ["--config", path, "--watchdog", "0.2"] + (["--supervise", "--blackbox"]
+                                                              if name == "supervised" else [])
+            env = {**os.environ, "SAT_FI_WEDGE_AT_STEP": "5"} if name == "supervised" else None
+            # a group of its own: the supervisor's child goes down with it;
+            # output to files, so neither run waits on a pipe the other's turn drains
+            with open(os.path.join(d, "out.log"), "w") as out, open(os.path.join(d, "err.log"), "w") as err:
+                procs[name] = (cfg, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "sat_tpu_torch.cli", *args], cwd=here, env=env,
+                    stdout=out, stderr=err, start_new_session=True))
+        for name, (cfg, t0, proc) in procs.items():
+            try:
+                proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                fail(f"{where} {name}: did not finish within 600s")
+            wall = time.perf_counter() - t0
+            d = os.path.dirname(cfg.save_dir)
+            with open(os.path.join(d, "out.log")) as out, open(os.path.join(d, "err.log")) as err:
+                stdout, stderr = out.read(), err.read()
+            if proc.returncode != 0:
+                fail(f"{where} {name}: exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+            if lineage.last_good_step(cfg.save_dir) != 6:
+                fail(f"{where} {name}: LAST_GOOD {lineage.last_good_step(cfg.save_dir)}, expected 6")
+            runs[name] = (cfg, wall, stderr)
+    finally:
+        stop_groups([p for _, _, p in procs.values()])
     cfg, wall, err = runs["supervised"]
     for line in ("sat_tpu_torch watchdog: phase 'step' exceeded", "aborting with exit code 86",
                  "watchdog abort (wedged run; LAST_GOOD landed)", "run completed after 1 restart(s)"):
@@ -3965,7 +4012,8 @@ def supervise_phase(np, tmp: str, card: str):
              for k in want if np.asarray(want[k]).size}
     worst = max(diffs, key=diffs.get)
     differing = sum(1 for v in diffs.values() if v != 0)
-    print(f"{where} on {card}: control 6 flagship steps through the CLI in {runs['control'][1]:.2f}s; "
+    print(f"{where} on {card}: control 6 flagship steps through the CLI in {runs['control'][1]:.2f}s, beside "
+          f"the supervised run; "
           f"--supervise --blackbox with SAT_FI_WEDGE_AT_STEP=5: child aborted with exit 86 (stack dump "
           f"and postmortem bundle {bundle_files} written, phase {manifests[0].get('phase')!r}), restarted "
           f"once from LAST_GOOD 3, ended at 6, in {wall:.2f}s; final 6.npz vs the control's: max abs "
@@ -3973,6 +4021,468 @@ def supervise_phase(np, tmp: str, card: str):
     if differing:
         fail(f"{where}: the supervised run's 6.npz is not bitwise its control's")
     return diffs[worst]
+
+
+# -- parallel training and mesh decode (torch.distributed, two ranks) --------
+
+# Runs argument lists through the port's CLI in turn, in this process (one
+# rank of a torchrun launch, or a plain process), counting per list what
+# the path launched and decoded, each rank's peak memory, and a sha256 of
+# every parameter leaf the train phase returns; writes tally_rank<r>.json.
+MESH_HARNESS = r"""
+import hashlib, json, os, sys, time
+import torch
+from sat_tpu_torch import cli, runtime
+from sat_tpu_torch.ops import beam_search as bs
+from sat_tpu_torch.ops import fused_attend as fa
+from sat_tpu_torch.parallel import train as ptrain
+from sat_tpu_torch.parallel.mesh import initialize_distributed, rank, shutdown_distributed
+from sat_tpu_torch.train.checkpoint import named_leaves
+
+out_dir, argvs = sys.argv[1], json.loads(sys.argv[2])
+sealed, decode_batch, mesh_decode, train = bs._sealed, runtime.decode_batch, ptrain.mesh_decode_batch, runtime.train
+cur = {}
+
+def counted_sealed(*a):
+    cur["steps"] += 1
+    return sealed(*a)
+
+def counted_batch(*a, **k):
+    cur["batches"] += 1
+    return decode_batch(*a, **k)
+
+def counted_mesh(*a, **k):
+    cur["batches"] += 1
+    return mesh_decode(*a, **k)
+
+def fingerprinted(*a, **k):
+    state = train(*a, **k)
+    cur["params"] = {name: [list(t.shape), hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()]
+                     for name, t, _ in named_leaves(state.params, "params/")}
+    return state
+
+bs._sealed, runtime.decode_batch, ptrain.mesh_decode_batch = counted_sealed, counted_batch, counted_mesh
+runtime.train = fingerprinted
+initialize_distributed()
+tally, rc = {}, 0
+try:
+    for i, argv in enumerate(argvs):
+        cur = {"argv": argv, "steps": 0, "batches": 0}
+        fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+        card = torch.cuda.is_available()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        cur.update(wall_s=time.perf_counter() - t0, launches=fa.fused_attend.launches,
+                   masked=fa.fused_attend.masked_launches,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card else 0.0, rc=rc)
+        tally[str(i)] = cur
+        if rc:
+            break
+finally:
+    with open(os.path.join(out_dir, f"tally_rank{rank()}.json"), "w") as f:
+        json.dump(tally, f)
+    shutdown_distributed()
+sys.exit(rc)
+"""
+
+MESH_STEPS = 6
+SHARED_CARD = "backend gloo, rank 0 on cuda:0 (the host's one card, shared by every local rank)"
+
+
+def mesh_base(np, tmp: str):
+    """The flagship as the repo trains it (``Config``'s training defaults:
+    dropout 0.5/0.3, Adam 1e-4, clip 5, batch 20, bf16) on the eval
+    fixture (48 JPEGs, two captions each: 96 pairs, 5 batches an epoch),
+    6 steps, the checkpoint at the end (none inside the timed steps);
+    written first when the eval phase did not run."""
+    config = eval_config(tmp)
+    if not os.path.exists(config.eval_caption_file):
+        write_coco_fixture(np, os.path.dirname(config.eval_image_dir), 48, SEED + 40)
+        write_vocabulary(np, config.vocabulary_file, config.vocabulary_size, caption_words())
+    return config.replace(
+        phase="train", train_image_dir=config.eval_image_dir, train_caption_file=config.eval_caption_file,
+        max_steps=MESH_STEPS, save_period=0, log_every=1,
+    )
+
+
+def mesh_run_config(base, tmp: str, tag: str, **kw):
+    """``base`` with its own save, summary, cache and result paths under
+    ``<tmp>/mesh/<tag>``, saved as ``config.json`` there."""
+    root = os.path.join(tmp, "mesh", tag)
+    os.makedirs(root, exist_ok=True)
+    config = base.replace(
+        save_dir=os.path.join(root, "models"), summary_dir=os.path.join(root, "summary"),
+        temp_annotation_file=os.path.join(root, "anns.csv"), temp_data_file=os.path.join(root, "data.npy"),
+        eval_result_file=os.path.join(root, "results.json"), eval_result_dir=os.path.join(root, "results"),
+        **kw,
+    )
+    config.save(os.path.join(root, "config.json"))
+    return config, os.path.join(root, "config.json")
+
+
+def profiled(tmp: str, tag: str):
+    """A train argument list's profiler window: step 5 of 6 (the first
+    step carries the first-call costs), under ``<tmp>/mesh/<tag>/prof``."""
+    return ["--set", f"profile_dir={os.path.join(tmp, 'mesh', tag, 'prof')}", "--set", "profile_start_step=4",
+            "--set", "profile_num_steps=1"]
+
+
+def mesh_launch(tmp: str, tag: str, nproc: int, argvs, where: str, timeout: int = 600):
+    """``argvs`` through ``MESH_HARNESS`` in ``nproc`` ranks: ``python -m
+    torch.distributed.run --standalone --nproc_per_node 2`` (every rank on
+    this card) or, for 1, a plain process.  Returns (each rank's tally,
+    stdout, stderr, wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    harness = os.path.join(tmp, "mesh", "harness.py")
+    if not os.path.exists(harness):
+        with open(harness, "w") as f:
+            f.write(MESH_HARNESS)
+    out_dir = os.path.join(tmp, "mesh", "tally", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc)]
+           if nproc > 1 else [sys.executable]) + [harness, out_dir, json.dumps(argvs)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env={**os.environ, "PYTHONPATH": here}, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_groups([proc])
+        fail(f"{where}: did not finish within {timeout}s")
+    finally:
+        stop_groups([proc])
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{where}: {' '.join(cmd[:7])} ... exited {proc.returncode}:\n{stdout[-2500:]}\n{stderr[-5000:]}")
+    tallies = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"tally_rank{r}.json")) as f:
+            tallies.append(json.load(f))
+    return tallies, stdout, stderr, wall
+
+
+def allreduce_share(path: str) -> tuple:
+    """(share of the profiled window inside all_reduce calls, window ms)
+    from a torch.profiler trace: the union of the intervals of events
+    named like an all_reduce over the span of every timed event."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if "dur" in e and "ts" in e]
+    if not events:
+        return 0.0, 0.0
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if "allreduce" in e["name"].lower().replace("_", ""))
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    window = end - start
+    return (busy / window if window > 0 else 0.0), window / 1e3
+
+
+def mesh_train_report(np, config, tallies, where: str, card: str, index: str = "0"):
+    """The train half of a launch: finite losses at every step, the fleet
+    document with every rank's row; prints each rank's median step (the
+    fleet row's p50 of the 6 steps), its share of the profiled step inside
+    all_reduce and its peak memory (of the tallies' argument list
+    ``index``).  Returns the metrics rows."""
+    rows = metrics_rows(np, config, where)
+    if [r["step"] for r in rows] != list(range(1, MESH_STEPS + 1)):
+        fail(f"{where}: metrics.jsonl steps {[r['step'] for r in rows]}")
+    tdir = os.path.join(config.summary_dir, "telemetry")
+    with open(os.path.join(tdir, "fleet.json")) as f:
+        fleet = json.load(f)
+    n = len(tallies)
+    if [h["process_index"] for h in fleet["hosts"]] != list(range(n)) or fleet["process_count"] != n:
+        fail(f"{where}: fleet.json rows {[h['process_index'] for h in fleet['hosts']]}, expected {n} ranks")
+    parts = []
+    for r, tally in enumerate(tallies):
+        host = fleet["hosts"][r]
+        prof = os.path.join(os.path.dirname(config.save_dir), "prof")
+        traces = glob.glob(os.path.join(prof, f"rank{r}" if n > 1 else "", "*", "trace.json"))
+        share, window = allreduce_share(traces[0]) if traces else (0.0, 0.0)
+        parts.append(f"rank {r}: median step {host['step_p50_ms']:.2f} ms (p95 {host['step_p95_ms']:.2f}), "
+                     f"all_reduce {share:.1%} of a {window:.1f} ms profiled step, peak memory "
+                     f"{tally[index]['peak_gib']:.3f} GiB")
+    print(f"{where} on {card}: {'; '.join(parts)}", flush=True)
+    return rows
+
+
+def check_mesh_eval(tally, where: str, batches: int, kernel: bool = True):
+    """An eval in one rank: ``batches`` batches decoded, B1 once a decode
+    step when ``kernel`` (the context-parallel attend is plain code), the
+    masked body never."""
+    if tally["batches"] != batches:
+        fail(f"{where}: {tally['batches']} batches decoded, expected {batches}")
+    want = tally["steps"] if kernel else 0
+    if tally["launches"] != want or tally["masked"]:
+        fail(f"{where}: fused_attend launched {tally['launches']} times (masked {tally['masked']}) over "
+             f"{tally['steps']} decode steps, expected {want}")
+
+
+def result_words(path: str) -> dict:
+    with open(path) as f:
+        return {r["image_id"]: r["caption"] for r in json.load(f)}
+
+
+def same_results(a: dict, b: dict) -> int:
+    return sum(1 for k in a if b.get(k) == a[k])
+
+
+# How far a mesh's training may sit from one process's: the losses and
+# the gradient norms (before the clip) of every step, and the share of the
+# final parameters' elements within 1e-6.  Only the order of the
+# all_reduce's sum differs, so the limits sit a few times above the
+# readings of that alone (losses 1.65e-5 / 2.06e-5 relative, 93.0% of the
+# elements within 1e-6, data / vocab parallel; PERF.md, PR 13) and far
+# below what a fault that scales the gradient or counts the L2 term on
+# every data rank moves.
+LOSS_RTOL = 1e-4
+GRAD_NORM_RTOL = 1e-3
+CLOSE_ABS, CLOSE_SHARE = 1e-6, 0.85
+
+
+def relative(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def train_parity(np, rows, ref_rows, got_path: str, want_path: str, where: str) -> dict:
+    """A mesh's training against one process's: the largest relative
+    difference of the losses and of the gradient norms over the steps,
+    and the final checkpoints' parameters (names and shapes equal; the
+    largest absolute difference and the share of elements within
+    ``CLOSE_ABS``)."""
+    from sat_tpu_torch.train.checkpoint import load_flat
+
+    got, want = load_flat(got_path), load_flat(want_path)
+    if sorted(got) != sorted(want) or any(np.shape(got[k]) != np.shape(want[k]) for k in want):
+        fail(f"{where}: {os.path.basename(got_path)} holds other names or shapes than the single process's")
+    worst, close, total = 0.0, 0, 0
+    for k in want:
+        if not k.startswith("params/"):
+            continue
+        d = np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64))
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+        close += int((d <= CLOSE_ABS).sum())
+        total += d.size
+    return {
+        "losses": [r["total_loss"] for r in rows],
+        "loss_rel": relative([r["total_loss"] for r in rows], [r["total_loss"] for r in ref_rows]),
+        "grad_rel": relative([r["grad_norm"] for r in rows], [r["grad_norm"] for r in ref_rows]),
+        "worst": worst,
+        "close": close / max(total, 1),
+    }
+
+
+def parity_text(p: dict) -> str:
+    return (f"losses within {p['loss_rel']:.2e} relative (limit {LOSS_RTOL:g}), gradient norms within "
+            f"{p['grad_rel']:.2e} (limit {GRAD_NORM_RTOL:g}); 6.npz: {p['close']:.4%} of the parameters' "
+            f"elements within {CLOSE_ABS:g} (limit {CLOSE_SHARE:.0%}), max abs {p['worst']:.3e}")
+
+
+def hold_parity(p: dict, where: str) -> None:
+    """Fails, naming every limit crossed, after the caller printed ``p``."""
+    crossed = [text for bad, text in (
+        (p["loss_rel"] > LOSS_RTOL, f"losses {p['loss_rel']:.2e} relative > {LOSS_RTOL:g}"),
+        (p["grad_rel"] > GRAD_NORM_RTOL, f"gradient norms {p['grad_rel']:.2e} relative > {GRAD_NORM_RTOL:g}"),
+        (p["close"] < CLOSE_SHARE, f"{p['close']:.4%} of the parameters within {CLOSE_ABS:g} < {CLOSE_SHARE:.0%}"),
+    ) if bad]
+    if crossed:
+        fail(f"{where}: not one process's training: {'; '.join(crossed)}")
+
+
+def replicated_equal(tallies, where: str, blocks=(), index: str = "0") -> int:
+    """Every rank's parameter leaves after the train of argument list
+    ``index`` bitwise rank 0's, but the vocab-sharded ``blocks`` (each rank
+    its own block).  Returns the leaves compared."""
+    first = tallies[0][index]["params"]
+    compared = 0
+    for r, t in enumerate(tallies[1:], start=1):
+        for name, (shape, digest) in t[index]["params"].items():
+            if name in blocks:
+                continue
+            compared += 1
+            if shape != first[name][0] or digest != first[name][1]:
+                fail(f"{where}: rank {r}'s replicated {name} is not bitwise rank 0's")
+    return compared
+
+
+def mesh_phase(np, tmp: str, card: str, got: dict):
+    """One launch of ``python -m torch.distributed.run --standalone
+    --nproc_per_node 2``, both ranks on this card under gloo, runs every
+    mesh in turn (the same two ranks form each mesh's groups): (2,1) data
+    parallelism trains the flagship 6 steps with ``--fleet_telemetry`` and
+    its 5th step profiled, then evaluates its 6.npz; (1,2) vocab
+    parallelism trains and evaluates the (2,1) 6.npz; (1,2) with
+    ``context_parallel=2`` trains and evaluates the (2,1) 6.npz in float32
+    and bf16.  Then one process: the same training (the reference), the
+    (2,1) 6.npz evaluated at the ranks' batch of 10, in float32 and at
+    batch 20, and the (2,1) 6.npz resumed for 2 more steps (the elastic
+    phase's run).  Checks the data-parallel run here; the vocab-parallel,
+    context-parallel and elastic phases check theirs.  Returns the B1
+    launches of the data-parallel evals: (its ranks', the reference's)."""
+    base = mesh_base(np, tmp)
+    dp, dp_path = mesh_run_config(base, tmp, "dp", mesh_shape=(2, 1))
+    tp, tp_path = mesh_run_config(base, tmp, "tp", mesh_shape=(1, 2))
+    cp, cp_path = mesh_run_config(base, tmp, "cp", mesh_shape=(1, 2), context_parallel=2)
+    single, single_path = mesh_run_config(base, tmp, "single")
+    dp_model = os.path.join(dp.save_dir, "6.npz")
+    cp_f32 = cp.eval_result_file.replace(".json", "_f32.json")
+    tallies, out, err, wall = mesh_launch(tmp, "ranks", 2, [
+        ["--config", dp_path, "--fleet_telemetry", *profiled(tmp, "dp")],
+        ["--config", dp_path, "--phase", "eval"],
+        ["--config", tp_path, "--fleet_telemetry", *profiled(tmp, "tp")],
+        ["--config", tp_path, "--phase", "eval", "--model_file", dp_model],
+        ["--config", cp_path, "--fleet_telemetry", *profiled(tmp, "cp")],
+        ["--config", cp_path, "--phase", "eval", "--model_file", dp_model, "--set", "compute_dtype=float32",
+         "--set", f"eval_result_file={cp_f32}"],
+        ["--config", cp_path, "--phase", "eval", "--model_file", dp_model],
+    ], "mesh train")
+    if SHARED_CARD not in err:
+        fail(f"mesh train: rank 0 did not report two ranks sharing cuda:0 under gloo:\n{err[-3000:]}")
+    one_b10, one_f32, one_b20 = (single.eval_result_file.replace(".json", f"_{tag}.json")
+                                 for tag in ("b10", "f32", "b20"))
+    elastic_tdir = os.path.join(tmp, "mesh", "elastic_tel")
+    # the batch-20 bf16 eval last of the evals: its scores are the last printed
+    ref, ref_out, ref_err, ref_wall = mesh_launch(tmp, "single", 1, [
+        ["--config", single_path, "--fleet_telemetry", *profiled(tmp, "single")],
+        ["--config", single_path, "--phase", "eval", "--model_file", dp_model, "--set", "batch_size=10", "--set",
+         f"eval_result_file={one_b10}"],
+        ["--config", single_path, "--phase", "eval", "--model_file", dp_model, "--set", "compute_dtype=float32",
+         "--set", f"eval_result_file={one_f32}"],
+        ["--config", single_path, "--phase", "eval", "--model_file", dp_model, "--set",
+         f"eval_result_file={one_b20}"],
+        ["--config", dp_path, "--load", "--set", "mesh_shape=1,1", "--set", f"max_steps={MESH_STEPS + 2}",
+         "--set", "num_epochs=2", "--telemetry", "--heartbeat_interval", "0.5", "--set",
+         f"telemetry_dir={elastic_tdir}", "--set", f"summary_dir={os.path.join(tmp, 'mesh', 'elastic')}"],
+    ], "mesh reference")
+    got.update(ranks=tallies, ranks_out=out, tp=tp, cp=cp, cp_f32=cp_f32, single=single, one_f32=one_f32,
+               one_b20=one_b20, ref_out=ref_out, ref_err=ref_err, dp=dp, elastic_tdir=elastic_tdir)
+    single_rows = mesh_train_report(np, single, ref, "mesh reference (one process)", card)
+    dp_rows = mesh_train_report(np, dp, tallies, "mesh train (2,1)", card, index="0")
+    parity = train_parity(np, dp_rows, single_rows, dp_model, os.path.join(single.save_dir, "6.npz"),
+                          "mesh train (2,1)")
+    got["single_rows"] = single_rows
+    compared = replicated_equal(tallies, "mesh train (2,1)", index="0")
+    for r, t in enumerate(tallies):
+        check_mesh_eval(t["1"], f"mesh eval (2,1) rank {r}", batches=5)
+    dp_words, one10, one20 = result_words(dp.eval_result_file), result_words(one_b10), result_words(one_b20)
+    print(f"mesh train on {card}: one launch of two ranks on cuda:0 under gloo ran the (2,1), (1,2) vocab- and "
+          f"(1,2) context-parallel meshes (3 x {MESH_STEPS} steps, 4 evals) in {wall:.2f}s (per list: "
+          f"{[round(tallies[0][k]['wall_s'], 2) for k in sorted(tallies[0], key=int)]} s); the one-process "
+          f"reference (train, 3 evals, the elastic resume) in {ref_wall:.2f}s ("
+          f"{[round(ref[0][k]['wall_s'], 2) for k in sorted(ref[0], key=int)]} s)", flush=True)
+    print(f"mesh train (2,1) on {card}: losses {[round(x, 5) for x in parity['losses']]} vs one process "
+          f"{[round(r['total_loss'], 5) for r in single_rows]}: {parity_text(parity)}; {compared} leaves bitwise "
+          f"equal across ranks; fleet.json 2 rows", flush=True)
+    hold_parity(parity, "mesh train (2,1)")
+    print(f"mesh eval (2,1) on {card}: B1 launches {[t['1']['launches'] for t in tallies]} over "
+          f"{[t['1']['steps'] for t in tallies]} decode steps, 5 batches of 10 rows a rank; results.json "
+          f"{same_results(dp_words, one10)}/{len(one10)} captions one process's eval of the same 6.npz at the "
+          f"ranks' batch of 10, {same_results(dp_words, one20)}/{len(one20)} at batch 20", flush=True)
+    if dp_words != one10:
+        fail("mesh eval (2,1): results.json differs from one process's eval of the same 6.npz at batch 10")
+    return sum(t["1"]["launches"] for t in tallies), sum(ref[0][k]["launches"] for k in ("1", "2", "3"))
+
+
+def vocab_parallel_phase(np, tmp: str, card: str, got: dict):
+    """Vocab tensor parallelism, (1,2), from the mesh launch: the losses
+    and gradient norms against the reference's, the gathered 6.npz full
+    width and close to the reference's (``hold_parity``), the replicated
+    leaves bitwise equal, the embedding and the last decode layer a block
+    a rank; its eval of the (2,1) 6.npz one process's words.  Returns its
+    ranks' B1 launches."""
+    tp, single, tallies = got["tp"], got["single"], got["ranks"]
+    rows = mesh_train_report(np, tp, tallies, "vocab parallel (1,2)", card, index="2")
+    half = tp.vocabulary_size // 2
+    blocks = sorted(n for n, (shape, _) in tallies[0]["2"]["params"].items() if half in shape)
+    if len(blocks) != 3:
+        fail(f"vocab parallel: vocab-sharded blocks {blocks}, expected the embedding and the last decode layer")
+    compared = replicated_equal(tallies, "vocab parallel", blocks, index="2")
+    parity = train_parity(np, rows, got["single_rows"], os.path.join(tp.save_dir, "6.npz"),
+                          os.path.join(single.save_dir, "6.npz"), "vocab parallel")
+    for r, t in enumerate(tallies):
+        check_mesh_eval(t["3"], f"vocab parallel eval rank {r}", batches=5)
+    words, one_words = result_words(tp.eval_result_file), result_words(got["one_b20"])
+    print(f"vocab parallel (1,2) on {card}: losses {[round(x, 5) for x in parity['losses']]} against one "
+          f"process: {parity_text(parity)}, 6.npz full width (word_embedding, decode/fc_2 gathered); {compared} "
+          f"replicated leaves bitwise equal across ranks, {len(blocks)} vocab-sharded blocks {blocks}; eval of the (2,1) "
+          f"6.npz: B1 launches {[t['3']['launches'] for t in tallies]} over {[t['3']['steps'] for t in tallies]} "
+          f"decode steps, {same_results(words, one_words)}/{len(one_words)} captions one process's eval of it",
+          flush=True)
+    hold_parity(parity, "vocab parallel")
+    if words != one_words:
+        fail("vocab parallel: results.json differs from one process's eval of the same 6.npz")
+    return sum(t["3"]["launches"] for t in tallies)
+
+
+def context_parallel_phase(np, tmp: str, card: str, got: dict):
+    """Context parallelism, (1,2) with ``context_parallel=2`` (98 of the
+    196 positions a rank), from the mesh launch: the loss falls over the 6
+    steps, the ranks' parameters bitwise equal; the (2,1) 6.npz decoded in
+    float32 (one process's float32 words) and in bf16 (held by caption
+    parity: at least 90% of the captions the same and every score within
+    0.05 of one process's bf16 eval; the CP attend rounds differently
+    from B1).  The context-parallel attend is plain tensor code, so B1
+    does not run."""
+    cp, tallies = got["cp"], got["ranks"]
+    losses = [r["total_loss"] for r in mesh_train_report(np, cp, tallies, "context parallel (1,2)", card,
+                                                         index="4")]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        fail(f"context parallel: the loss did not fall: {losses}")
+    compared = replicated_equal(tallies, "context parallel", index="4")
+    for r, t in enumerate(tallies):
+        for k in ("5", "6"):
+            check_mesh_eval(t[k], f"context parallel eval rank {r}", batches=5, kernel=False)
+    words32, one32 = result_words(got["cp_f32"]), result_words(got["one_f32"])
+    if words32 != one32:
+        fail(f"context parallel: float32 eval {same_results(words32, one32)}/{len(one32)} captions one "
+             "process's float32 eval, expected all")
+    words, one = result_words(cp.eval_result_file), result_words(got["one_b20"])
+    agree = same_results(words, one)
+    scores = printed_scores(np, got["ranks_out"], "context parallel bf16 eval")
+    ref_scores = printed_scores(np, got["ref_out"], "mesh reference eval")
+    worst_score = max(abs(scores[k] - ref_scores[k]) for k in scores)
+    print(f"context parallel (1,2) on {card}: losses {[round(x, 5) for x in losses]} (mean {first:.4f} -> "
+          f"{last:.4f}); {compared} leaves bitwise equal across ranks; the (2,1) 6.npz decoded in float32: "
+          f"{same_results(words32, one32)}/{len(one32)} captions one process's float32 eval; bf16: "
+          f"{agree}/{len(one)} captions, scores within {worst_score:.4f}", flush=True)
+    if agree < 0.9 * len(one) or worst_score > 0.05:
+        fail(f"context parallel: bf16 eval past the caption-parity gate: {agree}/{len(one)} captions, "
+             f"scores {worst_score:.4f} apart")
+    return 0
+
+
+def elastic_phase(np, tmp: str, card: str, got: dict):
+    """The (2, 1) run's 6.npz resumed by one process for 2 more steps (in
+    the reference launch): ``ckpt/elastic_restores`` 1 in its heartbeat,
+    the stderr line, the 6.npz sidecar recording 2 processes and mesh
+    [2, 1], 8.npz recording one."""
+    from sat_tpu_torch.resilience import lineage
+
+    dp = got["dp"]
+    with open(os.path.join(got["elastic_tdir"], "heartbeat.json")) as f:
+        beat = json.load(f)
+    count = beat["counters"].get("ckpt/elastic_restores")
+    before = lineage.read_sidecar_meta(os.path.join(dp.save_dir, "6.npz")).get("topology", {})
+    after = lineage.read_sidecar_meta(os.path.join(dp.save_dir, "8.npz")).get("topology", {})
+    line = "elastic resume — checkpoint 6.npz was written on 2 device(s) (mesh [2, 1]), restoring onto 1"
+    print(f"elastic on {card}: ckpt/elastic_restores {count}; 6.npz topology {before}; 8.npz topology {after}; "
+          f"LAST_GOOD {lineage.last_good_step(dp.save_dir)}", flush=True)
+    if count != 1 or line not in got["ref_err"]:
+        fail(f"elastic: ckpt/elastic_restores {count}, stderr line present {line in got['ref_err']}")
+    if (before.get("process_count"), before.get("mesh_shape")) != (2, [2, 1]) or after.get("process_count") != 1:
+        fail(f"elastic: sidecar topologies {before} / {after}")
+    if lineage.last_good_step(dp.save_dir) != MESH_STEPS + 2:
+        fail(f"elastic: LAST_GOOD {lineage.last_good_step(dp.save_dir)}, expected {MESH_STEPS + 2}")
 
 
 def memory_lead(torch, card: str) -> None:
@@ -4108,6 +4618,10 @@ def phases(torch, np, fa, card: str):
         ("resnet50 eval and train", ("eval", "train"), r50_eval_and_train),
         ("import", ("resnet50 eval and train",), lambda tmp: import_phase(np, got["r50_train"], card)),
         ("encoder_quant", (), encoder_quant),
+        ("mesh train", (), lambda tmp: mesh_phase(np, tmp, card, got)),
+        ("vocab parallel", ("mesh train",), lambda tmp: vocab_parallel_phase(np, tmp, card, got)),
+        ("context parallel", ("mesh train",), lambda tmp: context_parallel_phase(np, tmp, card, got)),
+        ("elastic", ("mesh train",), lambda tmp: elastic_phase(np, tmp, card, got)),
     ]
 
 
@@ -4186,6 +4700,8 @@ def main() -> int:
     r50_launches, r50_masked, r50_bulk = got["resnet50 serve and bulk"]
     r50_planes, r50_eval, import_launches = (got["resnet50 serve planes"], got["resnet50 eval and train"],
                                              got["import"])
+    mesh_ranks_b1 = got["mesh train"][0] + got["vocab parallel"]
+    mesh_b1 = mesh_ranks_b1 + got["mesh train"][1]
 
     for B, N, what in ((60, 196, "eval: batch 20 x beam 3"), (20, 196, "eval-loss step: batch 20"),
                        (96, 49, "ResNet50 bucket 32 x beam 3"), (60, 49, "ResNet50 eval: batch 20 x beam 3")):
@@ -4194,12 +4710,14 @@ def main() -> int:
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     vgg_b1 = (launches + ops_launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
-              + planes_b1 + route_b1)
+              + planes_b1 + route_b1 + mesh_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
           f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
-          f"step {eval_loss_launches}, serve planes {planes_b1}, route replicas {route_b1}; ResNet50 batch "
+          f"step {eval_loss_launches}, serve planes {planes_b1}, route replicas {route_b1}, mesh evals in every "
+          f"rank of the data- and vocab-parallel launches {mesh_ranks_b1}, their one-process reference "
+          f"{mesh_b1 - mesh_ranks_b1}; ResNet50 batch "
           f"serve {r50_launches}, eval "
           f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
           f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}, route replicas "
@@ -4225,6 +4743,7 @@ def main() -> int:
         "shape": "B=96 N=196 da=D=512 bfloat16 (bucket 32 x beam 3)",
         "launches_resnet50": r50_b1,
         "launches_route_replicas": route_b1,
+        "launches_mesh_ranks": mesh_ranks_b1,
         "resnet50": {"shape": "B=96 N=49 da=512 D=2048 bfloat16", "ms": r50_row["ms"],
                      "plain_ms": r50_row["plain_ms"], "bound_ms": r50_row["bound_ms"],
                      "bound_by": r50_row["bound_by"]},

@@ -20,6 +20,15 @@ observability flags ``--telemetry``, ``--heartbeat_interval``,
 packages.  With ``--blackbox`` every abnormal exit of train, bulk, eval
 and test leaves a postmortem bundle (``_postmortem``).
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node
+N -m sat_tpu_torch.cli ...``) every rank runs the CLI: it joins the
+process group first (``parallel.mesh.initialize_distributed``: the
+device and backend rule), then train, eval and test run the config's
+``mesh_shape`` and ``context_parallel`` one rank a mesh position; rank 0
+alone writes results, summaries and checkpoints, and each rank keeps its
+own heartbeat, fleet sidecar and flight recorder.  A mesh config in a
+single process raises with that launch command.
+
 ``--print_config`` prints the resolved Config as JSON and exits 0
 before anything else runs.  ``--supervise`` runs the same command in a
 child process and restarts it with ``--load`` when it crashes, is
@@ -268,8 +277,10 @@ def build_config(argv: Optional[List[str]] = None):
     )
     p.add_argument(
         "--fleet_telemetry", action="store_true",
-        help="the cross-host fleet plane; implies --telemetry (not ported: "
-             "train refuses it until parallel training is)",
+        help="train: the fleet plane over the ranks of a torchrun launch: "
+             "heartbeat_p<rank>.json sidecars merged by rank 0 into "
+             "fleet.json with skew ratios and a straggler verdict; implies "
+             "--telemetry",
     )
     p.add_argument(
         "--blackbox", action="store_true",
@@ -534,6 +545,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .serve.router import route
 
         return route(config)
+    # a torchrun launch: join the process group first, before the device
+    # is resolved (a no-op for a plain single process)
+    from .parallel.mesh import initialize_distributed, is_initialized, shutdown_distributed
+
+    joined = not is_initialized() and initialize_distributed()
+    try:
+        return _run_phase(config, cli)
+    finally:
+        if joined:  # a caller that joined the group itself keeps it
+            shutdown_distributed()
+
+
+def _run_phase(config: Config, cli) -> int:
+    """The device phases: serve, train, bulk, eval and test."""
     if config.phase == "serve":
         from .serve.server import serve
 
@@ -611,6 +636,8 @@ def _decode_phase(config: Config, cli) -> int:
         if cli["sweep"]:
             sweep = runtime.evaluate_sweep(config)
             for step in sorted(sweep):
+                if not sweep[step]:
+                    continue  # a mesh rank other than 0 scores nothing
                 line = "  ".join(f"{k}={v:.4f}" for k, v in sweep[step].items())
                 print(f"step {step}: {line}")
             return 0

@@ -3,9 +3,9 @@
 The same fields, defaults, validation and JSON loading as the JAX
 package's ``Config``, so one config file (or ``--set`` stack) drives both
 packages.  The port keeps this copy instead of importing it: nothing in
-``sat_tpu_torch`` imports ``sat_tpu``.  Knobs whose subsystem is not
-ported yet are still accepted here; the entry points that cannot honour
-them raise (see ``runtime.check_ported``).
+``sat_tpu_torch`` imports ``sat_tpu``.  A mesh config that the launch
+cannot run (more mesh positions than ranks) raises at the entry points
+(``runtime.mesh_for``).
 """
 
 from __future__ import annotations

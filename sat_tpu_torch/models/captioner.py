@@ -35,8 +35,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..data.images import ILSVRC_2012_MEAN
-from ..nn.layers import regularization_loss
+from ..nn.layers import BatchRows, regularization_loss
 from ..nn.quant import quantized_encode
+from ..parallel.collectives import all_reduce_, reduce_from
+from ..parallel.mesh import SINGLE
+from ..parallel.sharding import partition
+from ..parallel.vocab import vocab_parallel
 from ..train.checkpoint import batch_stats_from_flat, param_shapes, params_from_flat
 from .decoder import teacher_forced_decode
 from .resnet50 import resnet50
@@ -54,17 +58,19 @@ def _preprocess(images: torch.Tensor) -> torch.Tensor:
 
 
 def _cnn(params: Dict[str, Any], config: Config, images: torch.Tensor, train: bool,
-         with_activity: bool = False):
+         with_activity: bool = False, group=None):
     """The float32-parameter CNN over preprocessed images: (contexts, new
     batch statistics or None, conv L1 activity).  Only VGG16's convs sow
-    activity; ResNet50's run without an activation, so theirs is 0."""
+    activity; ResNet50's run without an activation, so theirs is 0.
+    ``group``: the data-parallel group of a training ResNet50's global
+    batch-norm moments."""
     dtype = getattr(torch, config.compute_dtype)
     if config.cnn == "vgg16":
         if with_activity:
             contexts, activity = vgg16(params["cnn"], images, dtype, with_activity=True)
             return contexts, None, activity
         return vgg16(params["cnn"], images, dtype), None, 0.0
-    contexts, new_stats = resnet50(params["cnn"], params["batch_stats"], images, dtype, train)
+    contexts, new_stats = resnet50(params["cnn"], params["batch_stats"], images, dtype, train, group)
     return contexts, new_stats, 0.0
 
 
@@ -99,12 +105,52 @@ def token_ce(
     return -logp.gather(-1, target)[..., 0]
 
 
+def loss_contexts(params: Dict[str, Any], config: Config, batch: Dict[str, torch.Tensor], train: bool,
+                  group=None):
+    """The context grid a loss runs on: (contexts, the CNN's new batch
+    statistics or None, its conv L1 activity).  The batch's precomputed
+    'contexts', or the CNN: training with ``train_cnn`` (under
+    ``remat_cnn`` checkpointed; ``group`` the data-parallel group of its
+    batch-norm moments), else frozen under ``torch.no_grad``."""
+    train_cnn = train and config.train_cnn
+    if "contexts" in batch:
+        return batch["contexts"], None, 0.0
+    if train_cnn:
+        with_activity = config.conv_activity_regularizer_scale > 0
+
+        def cnn(images):
+            return _cnn(params, config, images, train=True, with_activity=with_activity, group=group)
+
+        if config.remat_cnn:
+            # the backward recomputes the CNN forward from the images
+            # instead of keeping every conv activation; the running
+            # statistics are the forward's (the recompute's are dropped)
+            cnn = functools.partial(checkpoint, cnn, use_reentrant=False, preserve_rng_state=False)
+        return cnn(_preprocess(batch["images"]))
+    with torch.no_grad():
+        return encode(params, config, batch["images"]), None, 0.0
+
+
+def _regularization(params: Dict[str, Any], config: Config, mesh, vocab, train_cnn: bool,
+                    fc_scale: float) -> torch.Tensor:
+    """The weight-L2 term over the full parameters: under vocab
+    parallelism the replicated leaves' sum plus the sharded blocks' sums
+    added over the model group (identity backward: each rank's block
+    takes its own gradient)."""
+    kw = dict(fc_scale=fc_scale, conv_scale=config.conv_kernel_regularizer_scale, train_cnn=train_cnn)
+    if vocab is None:
+        return regularization_loss(params, **kw)
+    replicated, sharded = partition(params, config, mesh)
+    return regularization_loss(replicated, **kw) + reduce_from(regularization_loss(sharded, **kw), vocab.group)
+
+
 def compute_loss(
     params: Dict[str, Any],
     config: Config,
     batch: Dict[str, torch.Tensor],
     generator: Optional[torch.Generator] = None,
     train: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward pass and the total loss.
 
@@ -113,64 +159,80 @@ def compute_loss(
     ``generator``, which training needs.  Returns (total_loss, aux) with
     aux's 'metrics' (the five losses and accuracy), 'attentions' [B, N]
     (Σ_t α·mask) and 'batch_stats' (ResNet50's updated running
-    statistics when the CNN trains, else None)."""
+    statistics when the CNN trains, else None).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): ``batch`` holds this rank's rows
+    of the global batch and ``params`` its blocks.  Every term is then
+    normalized by the global count, as GSPMD computes it: cross-entropy
+    and accuracy by the global mask sum, the attention penalty by the
+    global B·N, the fc activity summed over the global batch.  The loss
+    returned is this rank's share (the weight-L2 term, replicated, on data
+    rank 0 only), so the sum of the data ranks' gradients is the global
+    loss' gradient; the metrics are the global values on every rank.
+    Dropout draws the global batch's masks and takes this rank's rows
+    (``nn.layers.BatchRows``).  Vocab parallelism (``parallel.vocab``)
+    splits the embedding and the logits over the model group; context
+    parallelism (``parallel.context``) the grid.  Without a mesh every
+    reduction here is the identity."""
     if train and generator is None:
         raise ValueError("compute_loss(train=True) requires a generator for dropout")
+    mesh = mesh or SINGLE
+    data, model = mesh.group("data"), mesh.group("model")
+    dp, d = mesh.size("data"), mesh.index("data")
+    cp = config.context_parallel > 1
+    vocab = vocab_parallel(config, mesh)
     fc_act_scale = config.fc_activity_regularizer_scale if train else 0.0
     train_cnn = train and config.train_cnn
     conv_act_scale = config.conv_activity_regularizer_scale if train_cnn else 0.0
-    conv_activity, new_stats = 0.0, None
-    if "contexts" in batch:
-        contexts = batch["contexts"]
-    elif train_cnn:
-        def cnn(images):
-            return _cnn(params, config, images, train=True, with_activity=conv_act_scale > 0)
-
-        if config.remat_cnn:
-            # the backward recomputes the CNN forward from the images
-            # instead of keeping every conv activation; the running
-            # statistics are the forward's (the recompute's are dropped)
-            cnn = functools.partial(checkpoint, cnn, use_reentrant=False, preserve_rng_state=False)
-        contexts, new_stats, conv_activity = cnn(_preprocess(batch["images"]))
-    else:
-        with torch.no_grad():
-            contexts = encode(params, config, batch["images"])
+    contexts, new_stats, conv_activity = loss_contexts(params, config, batch, train, group=data)
 
     sentences = batch["word_idxs"]
     masks = batch["masks"].float()
     B, T = sentences.shape
-    N = contexts.shape[1]
-    logits, alphas, fc_activity = teacher_forced_decode(
-        params["decoder"], config, contexts, sentences, generator if train else None
-    )
+    gen = (BatchRows(generator, d * B, dp * B) if dp > 1 else generator) if train else None
+    if cp:
+        from ..parallel.context import cp_teacher_forced
 
-    ce = token_ce(logits, sentences, config, train)
-    mask_sum = masks.sum()
+        logits, alphas, fc_activity = cp_teacher_forced(params["decoder"], config, contexts, sentences, mesh, gen)
+    else:
+        logits, alphas, fc_activity = teacher_forced_decode(
+            params["decoder"], config, contexts, sentences, gen, vocab=vocab
+        )
+
+    ce = token_ce(logits, sentences, config, train) if vocab is None else vocab.token_ce(logits, sentences)
+    mask_sum = all_reduce_(masks.sum(), data)
     cross_entropy_loss = (ce * masks).sum() / mask_sum
 
     # doubly stochastic attention: Σ_t α·mask per position, pulled toward 1
+    # (under context parallelism this rank's block of positions)
     attentions = (alphas * masks.unsqueeze(-1)).sum(dim=1)
     diffs = 1.0 - attentions
-    attention_loss = config.attention_loss_factor * 0.5 * (diffs * diffs).sum() / (B * N)
+    squares = (diffs * diffs).sum()
+    N = alphas.shape[-1]
+    if cp:
+        squares = reduce_from(squares, model)
+        N *= mesh.size("model")
+    attention_loss = config.attention_loss_factor * 0.5 * squares / (B * dp * N)
 
-    reg_loss = regularization_loss(
-        {"cnn": params["cnn"], "decoder": params["decoder"]},
-        fc_scale=config.fc_kernel_regularizer_scale if train else 0.0,
-        conv_scale=config.conv_kernel_regularizer_scale,
-        train_cnn=train_cnn,
+    reg = _regularization(
+        {"cnn": params["cnn"], "decoder": params["decoder"]}, config, mesh, vocab, train_cnn,
+        config.fc_kernel_regularizer_scale if train else 0.0,
     )
-    reg_loss = reg_loss + fc_act_scale * fc_activity + conv_act_scale * conv_activity
+    if d > 0:  # replicated over the data group: its gradient counts once
+        reg = 0.0 * reg
+    reg_loss = reg + fc_act_scale * fc_activity + conv_act_scale * conv_activity
     total_loss = cross_entropy_loss + attention_loss + reg_loss
 
-    predictions = logits.argmax(dim=-1)
+    predictions = logits.argmax(dim=-1) if vocab is None else vocab.argmax(logits)
     accuracy = ((predictions == sentences).float() * masks).sum() / mask_sum
+    parts = all_reduce_(torch.stack([cross_entropy_loss, attention_loss, reg_loss, accuracy]).detach(), data)
     aux = {
         "metrics": {
-            "cross_entropy_loss": cross_entropy_loss,
-            "attention_loss": attention_loss,
-            "reg_loss": reg_loss,
-            "total_loss": total_loss,
-            "accuracy": accuracy,
+            "cross_entropy_loss": parts[0],
+            "attention_loss": parts[1],
+            "reg_loss": parts[2],
+            "total_loss": parts[0] + parts[1] + parts[2],
+            "accuracy": parts[3],
         },
         "attentions": attentions,
         "batch_stats": new_stats,
@@ -180,7 +242,10 @@ def compute_loss(
         # live; with diag off nothing here runs
         from ..telemetry.device import loss_taps
 
-        aux["metrics"].update(loss_taps(config.diag_level, alphas=alphas, masks=masks, logits=logits))
+        aux["metrics"].update(loss_taps(
+            config.diag_level, alphas=alphas, masks=masks, logits=logits,
+            rows=data, positions=model if cp else None, columns=None if vocab is None else vocab.group,
+        ))
     return total_loss, aux
 
 

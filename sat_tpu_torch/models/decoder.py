@@ -82,9 +82,13 @@ def lstm_step(
 
 def init_state(params: Params, config: Config, contexts: torch.Tensor) -> DecoderState:
     """LSTM state from the mean context through a 1- or 2-layer MLP."""
+    return init_from_mean(params, config, contexts.mean(dim=1))
+
+
+def init_from_mean(params: Params, config: Config, context_mean: torch.Tensor) -> DecoderState:
+    """:func:`init_state` from an already reduced context mean."""
     p = params["initialize"]
     dt = compute_dtype(config)
-    context_mean = contexts.mean(dim=1)
     if config.num_initialize_layers == 1:
         memory = _dense(p["fc_a"], context_mean, dtype=dt)
         output = _dense(p["fc_b"], context_mean, dtype=dt)
@@ -158,14 +162,28 @@ def attend_with_precomputed(
     return _softmax_context(logits, contexts, valid)
 
 
-def decode_logits(params: Params, config: Config, expanded_output: torch.Tensor) -> torch.Tensor:
-    """concat(output, context, word_embed) → vocabulary logits."""
+def embed(params: Params, word: torch.Tensor, vocab=None) -> torch.Tensor:
+    """The word embedding rows of ``word``; with ``vocab``
+    (``parallel.vocab.VocabParallel``) the table is this rank's block."""
+    table = params["word_embedding"]["weights"]
+    return table[word] if vocab is None else vocab.embed(table, word)
+
+
+def _project(p, x: torch.Tensor, dt, vocab=None) -> torch.Tensor:
+    """The last decode layer: full logits, or this rank's block of them
+    under vocab parallelism (``x`` entering the sharded work)."""
+    return _dense(p, x if vocab is None else vocab.enter(x), dtype=dt)
+
+
+def decode_logits(params: Params, config: Config, expanded_output: torch.Tensor, vocab=None) -> torch.Tensor:
+    """concat(output, context, word_embed) → vocabulary logits (this rank's
+    block of them with ``vocab``)."""
     p = params["decode"]
     dt = compute_dtype(config)
     if config.num_decode_layers == 1:
-        return _dense(p["fc"], expanded_output, dtype=dt)
+        return _project(p["fc"], expanded_output, dt, vocab)
     temp = _dense(p["fc_1"], expanded_output, activation="tanh", dtype=dt)
-    return _dense(p["fc_2"], temp, dtype=dt)
+    return _project(p["fc_2"], temp, dt, vocab)
 
 
 def decoder_step(
@@ -176,6 +194,7 @@ def decoder_step(
     word: torch.Tensor,
     ctx_proj: Optional[torch.Tensor] = None,
     row_mask: Optional[torch.Tensor] = None,
+    vocab=None,
 ) -> Tuple[DecoderState, torch.Tensor, torch.Tensor]:
     """One decoder step: attend → embed → LSTM → logits.
 
@@ -183,20 +202,23 @@ def decoder_step(
     hoisted :func:`precompute_attend` output; None recomputes it.
     ``row_mask`` [B] bool goes to :func:`attend_with_precomputed` (the
     stepped decode's dead-slot mask); the monolithic search never sets
-    it."""
+    it.  ``vocab`` (vocab parallelism): the sharded embedding and
+    projection, the logits assembled full-width."""
     if ctx_proj is None:
         ctx_proj = precompute_attend(params, config, contexts)
     context, alpha = attend_with_precomputed(
         params, config, contexts, ctx_proj, state.output, row_mask=row_mask
     )
-    word_embed = params["word_embedding"]["weights"][word]
+    word_embed = embed(params, word, vocab)
     lstm_input = torch.cat([context, word_embed], dim=-1)
     new_c, new_h = lstm_step(
         params["lstm"], state.memory, state.recurrent, lstm_input,
         dtype=compute_dtype(config),
     )
     expanded = torch.cat([new_h, context, word_embed], dim=-1)
-    logits = decode_logits(params, config, expanded)
+    logits = decode_logits(params, config, expanded, vocab)
+    if vocab is not None:
+        logits = vocab.gather(logits)
     return DecoderState(memory=new_c, output=new_h, recurrent=new_h), logits, alpha
 
 
@@ -219,10 +241,18 @@ def train_init_state(
 ) -> Tuple[DecoderState, torch.Tensor]:
     """:func:`init_state` under dropout: one mask on the context mean and
     one on each tanh layer.  Returns (state, L1 of the tanh outputs)."""
+    return train_init_from_mean(params, config, contexts.mean(dim=1), generator)
+
+
+def train_init_from_mean(
+    params: Params, config: Config, context_mean: torch.Tensor, generator: torch.Generator
+) -> Tuple[DecoderState, torch.Tensor]:
+    """:func:`train_init_state` from an already reduced context mean (the
+    context-parallel init takes it over the sharded grid)."""
     p = params["initialize"]
     rate = config.fc_drop_rate
     dt = compute_dtype(config)
-    context_mean = dropout(contexts.mean(dim=1), rate, generator)
+    context_mean = dropout(context_mean, rate, generator)
     act = 0.0
     if config.num_initialize_layers == 1:
         memory = _dense(p["fc_a"], context_mean, dtype=dt)
@@ -265,7 +295,7 @@ def train_attend(
 
 
 def train_decode_logits(
-    params: Params, config: Config, expanded_output: torch.Tensor, generator: torch.Generator
+    params: Params, config: Config, expanded_output: torch.Tensor, generator: torch.Generator, vocab=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`decode_logits` under dropout → (logits, L1 of the tanh output)."""
     p = params["decode"]
@@ -273,10 +303,10 @@ def train_decode_logits(
     dt = compute_dtype(config)
     expanded_output = dropout(expanded_output, rate, generator)
     if config.num_decode_layers == 1:
-        return _dense(p["fc"], expanded_output, dtype=dt), 0.0
+        return _project(p["fc"], expanded_output, dt, vocab), 0.0
     temp = _dense(p["fc_1"], expanded_output, activation="tanh", dtype=dt)
     act = _l1(config, temp)
-    return _dense(p["fc_2"], dropout(temp, rate, generator), dtype=dt), act
+    return _project(p["fc_2"], dropout(temp, rate, generator), dt, vocab), act
 
 
 def train_decoder_step(
@@ -286,14 +316,16 @@ def train_decoder_step(
     state: DecoderState,
     word: torch.Tensor,
     generator: torch.Generator,
+    vocab=None,
 ) -> Tuple[DecoderState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One training step: attend → embed → LSTM → logits, with the
     DropoutWrapper's three masks (LSTM input, emitted h, recurrent h).
-    Returns (new_state, logits [B, V], alpha [B, N], the step's L1)."""
+    Returns (new_state, logits [B, V] (this rank's block under vocab
+    parallelism), alpha [B, N], the step's L1)."""
     ldr = config.lstm_drop_rate
     alpha, act = train_attend(params, config, contexts, state.output, generator)
     context = torch.bmm(alpha.unsqueeze(1), contexts).squeeze(1)
-    word_embed = params["word_embedding"]["weights"][word]
+    word_embed = embed(params, word, vocab)
     lstm_input = dropout(torch.cat([context, word_embed], dim=-1), ldr, generator)
     new_c, new_h = lstm_step(
         params["lstm"], state.memory, state.recurrent, lstm_input, dtype=compute_dtype(config)
@@ -301,7 +333,7 @@ def train_decoder_step(
     emitted = dropout(new_h, ldr, generator)
     recurrent = dropout(new_h, ldr, generator)
     expanded = torch.cat([emitted, context, word_embed], dim=-1)
-    logits, dec_act = train_decode_logits(params, config, expanded, generator)
+    logits, dec_act = train_decode_logits(params, config, expanded, generator, vocab)
     new_state = DecoderState(memory=new_c, output=emitted, recurrent=recurrent)
     return new_state, logits, alpha, act + dec_act
 
@@ -312,6 +344,7 @@ def teacher_forced_decode(
     contexts: torch.Tensor,
     sentences: torch.Tensor,
     generator: Optional[torch.Generator] = None,
+    vocab=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The training-time unroll over T steps: step 0 is fed ``<start>`` = 0,
     step t the ground-truth word ``sentences[:, t-1]``.
@@ -321,7 +354,9 @@ def teacher_forced_decode(
     card), as the JAX package's ``train=False``.  Returns (logits [B, T, V],
     alphas [B, T, N], the L1 activity of every tanh output over the
     initializer and all T steps; 0.0 without a generator or with
-    ``fc_activity_regularizer_scale`` 0)."""
+    ``fc_activity_regularizer_scale`` 0).  ``vocab`` (vocab parallelism):
+    the sharded embedding and projection; the training logits are this
+    rank's block, the inference ones full-width."""
     B, T = sentences.shape
     words_in = torch.cat([sentences.new_zeros((B, 1)), sentences[:, :-1]], dim=1)
     logits, alphas = [], []
@@ -331,16 +366,15 @@ def teacher_forced_decode(
         ctx_proj = precompute_attend(params, config, contexts)
         for t in range(T):
             state, step_logits, alpha = decoder_step(
-                params, config, contexts, state, words_in[:, t], ctx_proj=ctx_proj
+                params, config, contexts, state, words_in[:, t], ctx_proj=ctx_proj, vocab=vocab
             )
             logits.append(step_logits)
             alphas.append(alpha)
     else:
         state, act = train_init_state(params, config, contexts, generator)
-        step = (
-            functools.partial(_remat_step, params, config, contexts, generator=generator)
-            if config.remat_decoder
-            else functools.partial(train_decoder_step, params, config, contexts, generator=generator)
+        step = functools.partial(
+            _remat_step if config.remat_decoder else train_decoder_step, params, config, contexts,
+            generator=generator, vocab=vocab,
         )
         for t in range(T):
             state, step_logits, alpha, step_act = step(state, words_in[:, t])
@@ -358,6 +392,37 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def replay_checkpoint(step_fn, generators, *args):
+    """``step_fn(*args)`` under selective activation checkpointing (the
+    backward keeps the matmul outputs and recomputes the elementwise
+    chain).  ``torch.utils.checkpoint`` replays only the default
+    generators, so the recompute would draw new dropout masks from
+    ``generators``: their states are taken before the forward body and set
+    again for the recompute (their own states put back after it), so both
+    draw the same masks and the gradients are bitwise those of the plain
+    step."""
+    snapshot = [g.get_state() for g in generators]
+    calls = []
+
+    def body(*a):
+        if not calls:
+            calls.append(True)
+            return step_fn(*a)
+        current = [g.get_state() for g in generators]
+        for g, state in zip(generators, snapshot):
+            g.set_state(state)
+        try:
+            return step_fn(*a)
+        finally:
+            for g, state in zip(generators, current):
+                g.set_state(state)
+
+    return checkpoint(
+        body, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots),
+    )
+
+
 def _remat_step(
     params: Params,
     config: Config,
@@ -365,30 +430,9 @@ def _remat_step(
     state: DecoderState,
     word: torch.Tensor,
     generator: torch.Generator,
+    vocab=None,
 ):
-    """:func:`train_decoder_step` under selective activation checkpointing
-    (``remat_decoder``): the backward keeps the step's matmul outputs and
-    recomputes its elementwise chain.  ``torch.utils.checkpoint`` replays
-    only the default generators, so the recompute would draw new dropout
-    masks from ``generator``: the step's generator state is taken before
-    the forward body and set again for the recompute (the generator's own
-    state is put back after it), so both draw the same masks and the
-    losses and gradients are bitwise those of the plain step."""
-    snapshot = generator.get_state()
-    calls = []
-
-    def body(state, word):
-        if not calls:
-            calls.append(True)
-            return train_decoder_step(params, config, contexts, state, word, generator)
-        current = generator.get_state()
-        generator.set_state(snapshot)
-        try:
-            return train_decoder_step(params, config, contexts, state, word, generator)
-        finally:
-            generator.set_state(current)
-
-    return checkpoint(
-        body, state, word, use_reentrant=False, preserve_rng_state=False,
-        context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots),
-    )
+    """:func:`train_decoder_step` under ``remat_decoder``
+    (:func:`replay_checkpoint`)."""
+    step = functools.partial(train_decoder_step, params, config, contexts, generator=generator, vocab=vocab)
+    return replay_checkpoint(step, [generator], state, word)

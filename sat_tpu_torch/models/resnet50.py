@@ -66,6 +66,7 @@ def resnet50(
     images: torch.Tensor,
     dtype: torch.dtype,
     train: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """images [B, H, W, 3] float32 (mean-subtracted) → (contexts [B, N,
     2048] float32, new batch statistics).
@@ -73,7 +74,9 @@ def resnet50(
     ``train`` (the CNN is training): batch norms normalize with the
     batch's statistics and the second value is the updated running
     statistics, in ``batch_stats``' nesting; otherwise they use
-    ``batch_stats`` and the second value is None."""
+    ``batch_stats`` and the second value is None.  ``group``: the
+    data-parallel group the training moments are global over
+    (``nn.layers.batch_norm``)."""
     new_stats: Optional[Dict[str, Any]] = {} if train else None
 
     def conv_bn(block: str, conv: str, bn: str, x, stride=1, relu=False):
@@ -82,7 +85,7 @@ def resnet50(
         w = p[conv]
         y = conv2d_same(x, w["weight"].to(dtype), w["bias"].to(dtype) if "bias" in w else None,
                         stride, relu=False)
-        y, new = batch_norm(y, p[bn], s[bn], train)
+        y, new = batch_norm(y, p[bn], s[bn], train, group)
         if train:
             (new_stats.setdefault(block, {}) if block else new_stats)[bn] = new
         return y.relu_() if relu else y

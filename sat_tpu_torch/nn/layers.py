@@ -77,15 +77,40 @@ def max_pool2d(
     return F.max_pool2d(x, pool_size, strides, padding)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+class BatchRows:
+    """A dropout generator whose masks are drawn for a whole global batch
+    of ``total`` rows, of which the caller's tensors are rows ``start`` to
+    ``start + B``: a data-parallel rank takes its rows of the masks a
+    single process draws for the global batch, so both runs drop the same
+    units.  ``get_state``/``set_state`` are the generator's (remat replays
+    them)."""
+
+    def __init__(self, generator: torch.Generator, start: int, total: int) -> None:
+        self.generator = generator
+        self.start = int(start)
+        self.total = int(total)
+
+    def get_state(self):
+        return self.generator.get_state()
+
+    def set_state(self, state) -> None:
+        self.generator.set_state(state)
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """Inverted dropout, ``where(mask, x / keep, 0)`` with a keep mask drawn
     from ``generator`` (which must live on ``x``'s device).  The JAX
     package's ``dropout``; ``F.dropout`` takes no generator, so a resumed
-    run could not replay its masks."""
+    run could not replay its masks.  A :class:`BatchRows` generator draws
+    the mask of its global batch and takes ``x``'s rows of it."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, BatchRows):
+        u = torch.rand((generator.total,) + tuple(x.shape[1:]), generator=generator.generator, device=x.device)
+        mask = u[generator.start: generator.start + x.shape[0]] < keep
+    else:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -135,6 +160,7 @@ def batch_norm(
     params: Dict[str, torch.Tensor],
     stats: Dict[str, torch.Tensor],
     train: bool = False,
+    group=None,
 ):
     """Flax's ``nn.BatchNorm`` over NCHW ``x`` (per channel), returning
     ``(y, new_stats)``.
@@ -145,12 +171,25 @@ def batch_norm(
     biased, clipped at 0), and returns the running update ``0.99·ra +
     0.01·batch`` (no gradient).  Either way ``(x − mean)·(rsqrt(var + ε)·
     scale) + bias`` runs in float32 (at least) and is cast back to ``x``'s
-    dtype."""
+    dtype.
+
+    ``group`` (a data-parallel process group): the batch is the global one
+    spread over its ranks, so the training moments E[x] and E[x²] are
+    summed over the group (with gradient) before the division, as the
+    JAX package's GSPMD moments are global."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     new_stats = None
-    if train:
+    if train and group is not None:
+        from ..parallel.collectives import all_reduce_sum
+
+        count = xf.shape[0] * xf.shape[2] * xf.shape[3] * torch.distributed.get_world_size(group)
+        moments = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]), group)
+        mean = moments[0] / count
+        var = (moments[1] / count - mean * mean).clamp_min(0.0)
+    elif train:
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    if train:
         new_stats = {
             "mean": BN_MOMENTUM * stats["mean"] + (1.0 - BN_MOMENTUM) * mean.detach(),
             "var": BN_MOMENTUM * stats["var"] + (1.0 - BN_MOMENTUM) * var.detach(),

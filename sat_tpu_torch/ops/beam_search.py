@@ -242,11 +242,15 @@ def run_search(
     alpha_width: Optional[int] = None,
     early_exit: bool = True,
     return_steps: bool = False,
+    stop_group=None,
 ) -> BeamResult:
     """The search loop.  ``step_fn(state, last_word [B*K])`` returns
     (new_state, logits [B*K, V], alpha [B*K, N]); ``state0`` is already
     tiled to [B*K, H].  ``early_exit`` stops once every row is sealed —
-    result-identical to running all T steps."""
+    result-identical to running all T steps.  ``stop_group``: the process
+    group of ranks that run this search together (vocab or context
+    parallelism); they agree the stop with one tiny all_reduce, since
+    their next step's collectives need every one of them."""
     K = beam_size or config.beam_size
     T = max_len or config.max_caption_length
     V = config.vocabulary_size
@@ -264,8 +268,14 @@ def run_search(
         )
         t += 1
         # one host sync per step: the exact early exit
-        if early_exit and bool(_sealed(s.fin_logp, s.live_logp).all()):
-            break
+        if early_exit:
+            live = ~_sealed(s.fin_logp, s.live_logp).all()
+            if stop_group is not None:
+                from ..parallel.collectives import agree_any
+
+                live = agree_any(live, stop_group)
+            if not bool(live):
+                break
     return _merge_results(s, K, return_alphas, steps=t if return_steps else None)
 
 
@@ -287,12 +297,17 @@ def beam_search(
     return_alphas: bool = False,
     early_exit: bool = True,
     return_steps: bool = False,
+    vocab=None,
 ) -> BeamResult:
     """Decode captions for a batch of context grids [B, N, D] float32.
 
     ``params`` is the decoder parameter dict; ``valid_size`` masks logit
     columns past the real vocabulary; ``return_alphas`` carries each
-    hypothesis' per-step attention maps."""
+    hypothesis' per-step attention maps.  ``vocab``
+    (``parallel.vocab.VocabParallel``): the params hold this rank's
+    vocabulary block; the logits are assembled full-width before the
+    ``top_k``, so every model rank runs the same search, and the ranks
+    agree each step's stop."""
     K = beam_size or config.beam_size
     B, N, _ = contexts.shape
     ctx_tiled = tile_beams(contexts, K)
@@ -300,13 +315,13 @@ def beam_search(
     state0 = DecoderState(*(tile_beams(x, K) for x in init_state(params, config, contexts)))
 
     def step_fn(state, last_word):
-        return decoder_step(params, config, ctx_tiled, state, last_word, ctx_proj=proj_tiled)
+        return decoder_step(params, config, ctx_tiled, state, last_word, ctx_proj=proj_tiled, vocab=vocab)
 
     return run_search(
         config, step_fn, state0, B, eos_id,
         beam_size=K, max_len=max_len, valid_size=valid_size,
         return_alphas=return_alphas, alpha_width=N, early_exit=early_exit,
-        return_steps=return_steps,
+        return_steps=return_steps, stop_group=None if vocab is None else vocab.group,
     )
 
 

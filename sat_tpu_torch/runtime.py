@@ -53,9 +53,16 @@ journals the loops into the flight recorder, and ``profile_dir`` opens a
 torch.profiler window (:class:`ProfilerWindow`).  None of it adds a host
 sync; a failure of any of it degrades to a warning.
 
-Not ported yet, and raising ``NotImplementedError`` (:func:`check_ported`,
-:func:`check_train_ported`): mesh and context-parallel runs, and for
-training ``fleet_telemetry``.
+Mesh and context-parallel runs (``mesh_shape``, ``context_parallel``)
+run one process a mesh position under ``torchrun``
+(``parallel``; :func:`mesh_for`): train on each rank's rows and blocks
+with the gradients summed over the data group, eval and test decoding
+each data rank's rows and assembling the results on every rank.  Rank 0
+writes the results, summaries and checkpoints (the sharded leaves
+gathered first, the writer synchronous); each rank keeps its own
+telemetry directory (``<telemetry_dir>/rank<r>``: heartbeat, flight
+recorder, traces), and ``fleet_telemetry`` merges the ranks' sidecars
+into ``fleet.json`` in the shared telemetry directory.
 """
 
 from __future__ import annotations
@@ -94,7 +101,7 @@ from .resilience.watchdog import Watchdog, deadlines_from_config
 from .train.checkpoint import (
     AsyncCheckpointWriter, ServingState, apply_cnn_import, check_vocab, compute_params,
     import_reference_checkpoint, load_flat, restore_checkpoint, save_checkpoint, state_from_flat,
-    to_device, walk_back,
+    take_elastic_restores, to_device, walk_back,
 )
 from .train.step import TrainState, create_train_state, make_train_step, step_generator
 from .utils.fileio import atomic_write
@@ -102,28 +109,92 @@ from .utils.progress import Progress, track
 from .utils.summary import SummaryWriter
 
 
-def check_ported(config: Config) -> None:
-    """Raise on eval/test (and train) knobs whose subsystem is not ported yet."""
-    if int(np.prod(config.mesh_shape)) > 1 or config.context_parallel > 1:
-        raise NotImplementedError(
-            f"mesh and context-parallel runs (mesh_shape={tuple(config.mesh_shape)}, "
-            f"context_parallel={config.context_parallel}) are not ported to sat_tpu_torch "
-            "yet (only one device)"
-        )
+def mesh_for(config: Config):
+    """The mesh this launch runs ``config`` on (``parallel.mesh.Mesh``), or
+    None for a plain single process with a one-device config.
+
+    A ``mesh_shape`` of more than one position or a ``context_parallel``
+    above 1 needs that many ranks (``torchrun``): in a single process it
+    raises with the launch command, and a launch whose rank count differs
+    from the mesh raises too.  There is no silent one-device run."""
+    from .parallel.mesh import make_mesh, world_size
+
+    if world_size() == 1 and int(np.prod(config.mesh_shape)) == 1 and config.context_parallel <= 1:
+        return None
+    mesh = make_mesh(config)
+    if config.context_parallel > 1:
+        from .parallel.context import validate_cp_mesh
+
+        validate_cp_mesh(config, mesh)
+    return mesh
 
 
-def check_train_ported(config: Config) -> None:
-    """Raise on train knobs whose subsystem is not ported yet.
+def placement_config(config: Config) -> Config:
+    """The config the placement rule reads: a context-parallel run spends
+    the model axis on the context grid and keeps every leaf replicated
+    (the vocab rule off), as the JAX package's ``placement_config``."""
+    return config.replace(vocabulary_size=-1) if config.context_parallel > 1 else config
 
-    ``rng_impl`` is accepted and has no effect: it picks JAX's random-bit
-    generator, and torch draws dropout masks with its own (Philox on the
-    card), so the port's masks never equal the JAX package's bits."""
-    check_ported(config)
-    if config.fleet_telemetry:
-        raise NotImplementedError(
-            f"fleet_telemetry={config.fleet_telemetry!r} is not ported to sat_tpu_torch yet "
-            "(only False; the fleet plane comes with parallel training)"
-        )
+
+@contextlib.contextmanager
+def _rank_zero_first(mesh, tag: str):
+    """Rank 0 runs the block first (it writes the shared caches: the
+    vocabulary, the annotation and data files), the other ranks after it
+    (they read them)."""
+    if mesh is None:
+        yield
+        return
+    from .parallel.mesh import sync_processes
+
+    if mesh.rank != 0:
+        sync_processes(tag)
+    yield
+    if mesh.rank == 0:
+        sync_processes(tag)
+
+
+class _NullWriter:
+    """The summary writer of a rank other than 0: writes nothing."""
+
+    def __enter__(self) -> "_NullWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+    def scalars(self, step, values) -> None:
+        pass
+
+    def variable_stats(self, step, params) -> None:
+        pass
+
+
+def _stop_agreed(mesh, requested: bool) -> bool:
+    """Whether the loop stops at this step: this process's request alone,
+    or on a mesh any rank's (one int over the CPU group every step)."""
+    if mesh is None or mesh.host_group is None:
+        return requested
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(requested)], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.host_group)
+    return bool(flag.item())
+
+
+def _fleet_gather(mesh, vec):
+    """The fleet plane's transport: every rank's float64 row, over the CPU
+    gloo group; None in a single process (the sidecar path is exact
+    there) or when the gather fails (the plane then reads the sidecars)."""
+    if mesh is None or mesh.host_group is None:
+        return None
+    import torch.distributed as dist
+
+    try:
+        rows = [torch.zeros(len(vec), dtype=torch.float64) for _ in range(mesh.world)]
+        dist.all_gather(rows, torch.from_numpy(np.asarray(vec, np.float64)), group=mesh.host_group)
+        return torch.stack(rows).numpy()
+    except RuntimeError:
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +388,7 @@ class ProfilerWindow:
     loops pass ``max_start`` (their batch count - 1) so a short eval still
     traces.  Each window writes ``<profile_dir>/<stamp>/trace.json``; a
     sweep builds a fresh window per decode, and a closed window never
-    opens again.
+    opens again.  The ranks of a launch write under ``profile_dir/rank<r>``.
 
     Starting while another capture is live (a ``/profile`` or ``SIGUSR2``
     window, an outer profiler) raises in torch: the window marks itself
@@ -325,7 +396,12 @@ class ProfilerWindow:
     without ever stopping the other capture."""
 
     def __init__(self, config: Config, max_start: Optional[int] = None, device=None) -> None:
-        self._dir = config.profile_dir
+        from .telemetry import process_identity
+
+        index, count = process_identity()
+        # the ranks of a launch share profile_dir: each writes under its own
+        self._dir = os.path.join(config.profile_dir, f"rank{index}") if config.profile_dir and count > 1 \
+            else config.profile_dir
         self._device = device
         self._start = config.profile_start_step
         if max_start is not None:
@@ -417,7 +493,26 @@ def _timed_iter(it, tel, name: str):
 
 
 def _telemetry_dir(config: Config) -> str:
+    """This process's telemetry directory: ``telemetry_dir`` (default
+    ``<summary_dir>/telemetry``), and under a launch of several ranks its
+    ``rank<r>`` subdirectory, so the ranks' heartbeats, traces and flight
+    recorders never collide."""
+    from .telemetry import process_identity
+
+    base = _telemetry_base(config)
+    index, count = process_identity()
+    return os.path.join(base, f"rank{index}") if count > 1 else base
+
+
+def _telemetry_base(config: Config) -> str:
     return config.telemetry_dir or os.path.join(config.summary_dir, "telemetry")
+
+
+def _fleet_dir(config: Config) -> str:
+    """The directory the ranks share for the fleet sidecars and
+    ``fleet.json``: ``fleet_dir``, else the run's telemetry directory
+    above the ranks' own."""
+    return config.fleet_dir or _telemetry_base(config)
 
 
 def _telemetry_begin(config: Config):
@@ -435,17 +530,29 @@ def _telemetry_begin(config: Config):
 
 
 def _device_static(device) -> dict:
-    """Heartbeat ``static`` device facts: the backend and the device's
-    kind and platform (the card's name on a card)."""
+    """Heartbeat ``static`` device facts: the backend, the device's kind
+    and platform (the card's name on a card), this rank and the world
+    size, and under a launch of several ranks the collectives' backend
+    and whether the host's one card is shared."""
+    from .parallel.mesh import boot_info
+    from .telemetry import process_identity
+
     cuda = device.type == "cuda"
-    return {
+    index, count = process_identity()
+    static = {
         "backend": device.type,
         "num_devices": torch.cuda.device_count() if cuda else 1,
-        "process_index": 0,
-        "process_count": 1,
+        "process_index": index,
+        "process_count": count,
         "device_kind": torch.cuda.get_device_name(device) if cuda else "cpu",
         "device_platform": "gpu" if cuda else "cpu",
     }
+    boot = boot_info()
+    if boot:
+        static["collective_backend"] = boot["backend"]
+        static["local_world_size"] = boot["local_world"]
+        static["shared_card"] = bool(cuda and boot["backend"] == "gloo" and boot["local_world"] > 1)
+    return static
 
 
 def _device_memory_sampler(device):
@@ -505,6 +612,7 @@ def _install_blackbox(config: Config, tel, event: str, **fields):
     bb = blackbox.BlackBox(os.path.join(tdir, "blackbox"), tel)
     blackbox.install(
         bb, telemetry_dir=tdir, config_snapshot=config.to_dict(), quarantine_ledger=ledger_path_for(config),
+        fleet_dir=_fleet_dir(config) if config.fleet_telemetry else "",
     )
     bb.event(event, **fields)
     return bb
@@ -550,12 +658,13 @@ def train(
     from a checkpoint of step ``s`` replays the batches and masks of the
     uninterrupted run.  The final checkpoint is saved after the loop and
     must verify (``CheckpointWriteError`` otherwise)."""
-    check_train_ported(config)
+    mesh = mesh_for(config)
     dev = resolve_device(device)
     if seed is None:
         seed = config.seed
     if dataset is None:
-        dataset = prepare_train_data(config if seed == config.seed else config.replace(seed=seed))
+        with _rank_zero_first(mesh, "prepare_train_data"):
+            dataset = prepare_train_data(config if seed == config.seed else config.replace(seed=seed))
     if dataset.count == 0:
         raise ValueError(
             "training dataset is empty after preparation — every caption was filtered out "
@@ -563,15 +672,31 @@ def train(
         )
     if state is None:
         state = setup_train_state(config, seed=seed, device=dev)
-    train_step = make_train_step(config)
+    if mesh is not None:
+        from .parallel.data import mesh_data_shard, process_local_dataset
+        from .parallel.mesh import sync_processes
+        from .parallel.sharding import shard_train_state
+
+        # this rank's blocks of the vocab-sharded leaves (a context-parallel
+        # run keeps every leaf replicated), and its rows of each batch
+        sync_processes("shard_state")
+        state = shard_train_state(state, placement_config(config), mesh)
+        dataset = process_local_dataset(dataset, *mesh_data_shard(mesh))
+    train_step = make_train_step(config, mesh)
     loader = make_loader(config, dataset)
     retry.configure(config.io_retries, config.io_retry_base_s)
     sentinel = AnomalySentinel(config.anomaly_policy, config.anomaly_spike_factor)
     plan = FaultPlan.from_env()
-    async_writer = AsyncCheckpointWriter() if config.async_checkpoint else None
-    ckpt_save = async_writer.save if async_writer else save_checkpoint
+    # a mesh writes synchronously: the save gathers the sharded leaves in
+    # line with the step stream and rank 0 writes
+    async_writer = AsyncCheckpointWriter() if config.async_checkpoint and mesh is None else None
+    ckpt_save = async_writer.save if async_writer else functools.partial(save_checkpoint, mesh=mesh)
+    primary = mesh is None or mesh.rank == 0
     # fresh ring buffers with telemetry on, the null object otherwise
+    elastic = take_elastic_restores()
     tel = _telemetry_begin(config)
+    if config.telemetry and elastic:
+        tel.count("ckpt/elastic_restores", elastic)  # the --load before this run
     # incarnation number under --supervise (the supervisor exports it)
     tel.gauge("supervisor/restarts", int(os.environ.get(RESTARTS_ENV, "0") or 0))
     tdir = _telemetry_dir(config)
@@ -587,11 +712,12 @@ def train(
     stopped = False
     probed = False  # the train step's compile report, on its first call
     final_path: Optional[str] = None
-    profile_trigger = profile_latch = bb = None
+    profile_trigger = profile_latch = bb = fleet_plane = None
     # the ExitStack drains the async writer last (after the summary writer
-    # closes), on success and on exception alike
-    with contextlib.ExitStack() as stack, SummaryWriter(config.summary_dir) as writer, \
-            GracefulShutdown() as shutdown:
+    # closes), on success and on exception alike; rank 0 alone writes the
+    # summaries of a mesh
+    with contextlib.ExitStack() as stack, (SummaryWriter(config.summary_dir) if primary else _NullWriter()) \
+            as writer, GracefulShutdown() as shutdown:
         if config.telemetry:
             # LIFO: the exports run last, after the heartbeat's final beat
             stack.callback(_telemetry_finish, tel, config, "train")
@@ -638,6 +764,20 @@ def train(
             profile_trigger = SignalTrigger()
             if hasattr(signal, "SIGUSR2"):
                 profile_trigger.install(signal.SIGUSR2)
+            if config.fleet_telemetry:
+                # every rank writes heartbeat_p<rank>.json at the log
+                # boundary; rank 0 merges them into fleet.json.  finish()
+                # records the terminal step even when the loop dies
+                # between boundaries
+                from .parallel.mesh import world_size
+                from .telemetry.fleet import FleetPlane
+
+                fleet_plane = FleetPlane(
+                    _fleet_dir(config), 0 if mesh is None else mesh.rank, world_size(), tel,
+                    straggler_factor=config.straggler_factor,
+                    history_cap_bytes=int(config.telemetry_log_cap_mb * 1e6),
+                )
+                stack.callback(fleet_plane.finish)
         # the flight recorder: abnormal exits (watchdog 86, corruption 87,
         # a sentinel rollback, an uncaught exception) dump a postmortem
         # bundle from it; the finalizer chain flushes it on teardown
@@ -654,6 +794,10 @@ def train(
             wd.start()
         # resume-aware trace window; the ExitStack closes it on any exit
         prof = stack.enter_context(ProfilerWindow(config, device=dev))
+        if mesh is not None:
+            # realign the ranks before the first step's collectives: loader
+            # start-up and the first step's allocations drift them apart
+            sync_processes("first_step")
         while True:  # re-entered only by a sentinel rollback
             rollback = False
             # batch order is a function of (seed, epoch), so the global
@@ -677,7 +821,9 @@ def train(
                             plan.maybe_kill(step)  # injected preemption (inert unarmed)
                             plan.maybe_wedge(step)  # injected silent hang
                             plan.maybe_slow(step)  # injected slow-but-alive step
-                            if shutdown.stop_requested:
+                            # a signal reaches the ranks at different steps:
+                            # they agree the stop, so all leave at one step
+                            if _stop_agreed(mesh, shutdown.stop_requested):
                                 stopped = True
                                 break
                             prof.before_step(step)
@@ -703,6 +849,9 @@ def train(
                                 writer.scalars(step, host)
                                 if config.telemetry:
                                     _log_boundary(tel, config, host, step, profile_trigger, profile_latch)
+                                if fleet_plane is not None:
+                                    with tel.span("fleet/tick"):
+                                        fleet_plane.tick(step, gather_fn=functools.partial(_fleet_gather, mesh))
                                 if bb is not None:
                                     bb.journal(step)
                                 if sentinel.check(step, host) == "rollback":
@@ -735,7 +884,7 @@ def train(
                 if async_writer:
                     # the save that blessed LAST_GOOD may still be queued
                     async_writer.flush()
-                restored = _restore_last_good(state, config, step)
+                restored = _restore_last_good(state, config, step, mesh)
                 if restored is None:
                     sentinel.policy = "warn"  # nothing to roll back to
                 else:
@@ -772,7 +921,7 @@ def train(
                     "sigterm_during_checkpoint", exit_code=0, step=step,
                     signal=shutdown.signal_name, final_checkpoint=final_path or "",
                 )
-    if final_path is not None:
+    if final_path is not None and primary:
         ok, reason = lineage.verify_checkpoint(final_path)
         if not ok:
             raise CheckpointWriteError(f"final checkpoint {final_path} did not land: {reason}")
@@ -800,7 +949,7 @@ def _log_boundary(tel, config: Config, host: Dict[str, float], step: int, trigge
         )
 
 
-def _restore_last_good(state: TrainState, config: Config, step: int) -> Optional[TrainState]:
+def _restore_last_good(state: TrainState, config: Config, step: int, mesh=None) -> Optional[TrainState]:
     """Sentinel rollback: the newest verifiable ``LAST_GOOD`` checkpoint
     loaded into the (poisoned) state, keeping the loop's step, so the
     loader moves past the poison step instead of replaying it (the same
@@ -814,7 +963,7 @@ def _restore_last_good(state: TrainState, config: Config, step: int) -> Optional
             file=sys.stderr, flush=True,
         )
         return None
-    restored, count = restore_checkpoint(state, model_file=path)
+    restored, count = restore_checkpoint(state, model_file=path, mesh=mesh, placement=placement_config(config))
     if count == 0:
         print(f"sat_tpu_torch: rollback restore from {path} loaded 0 tensors", file=sys.stderr, flush=True)
         return None
@@ -875,14 +1024,35 @@ def decode_dataset(
     """Beam-search every image; returns [{image_id, image_file, caption,
     prob}] (plus 'words' and 'alphas' [len, N] with
     ``save_attention_maps``), with last-batch padding dropped and each
-    image id kept once."""
-    check_ported(config)
+    image id kept once.
+
+    On a mesh (:func:`mesh_for`) each data rank decodes its rows of every
+    batch (``parallel.train.mesh_decode_batch``: the kernel runs in every
+    rank), the beam-0 words, lengths, scores and alphas of every rank are
+    gathered over the CPU group at the end, and every rank returns the
+    whole result list in dataset order."""
+    mesh = mesh_for(config)
     dev = resolve_device(device)
     params = compute_params(to_device(state.params, dev), config, to_device(state.batch_stats, dev))
     eos = _eos_id(vocabulary)
     valid_size = len(vocabulary.words)
+    feed_ds = dataset
+    if mesh is not None:
+        from .parallel.data import mesh_data_shard, process_local_dataset
+        from .parallel.train import place_params
+
+        if config.batch_size % mesh.size("data"):
+            raise ValueError(
+                f"batch_size={config.batch_size} not divisible by the data-axis size {mesh.size('data')} "
+                "for mesh decoding"
+            )
+        # the vocab rule's blocks (a context-parallel run keeps every leaf
+        # replicated); the feed keyed on the data axis
+        params = place_params(params, config, mesh)
+        feed_ds = process_local_dataset(dataset, *mesh_data_shard(mesh))
 
     results: List[Dict[str, Any]] = []
+    gathered: List[Tuple[np.ndarray, ...]] = []
     seen = set()
     emitted = 0
 
@@ -892,6 +1062,10 @@ def decode_dataset(
         lengths = out.lengths[:, 0].cpu().numpy()
         scores = out.log_scores[:, 0].cpu().numpy()
         alphas = out.alphas[:, 0].cpu().numpy() if out.alphas is not None else None
+        if mesh is not None:
+            # this rank's block of the global batch; assembled after the loop
+            gathered.append((words, lengths, scores) + (() if alphas is None else (alphas,)))
+            return
         for i, image_file in enumerate(files):
             if emitted >= dataset.count:                # fake_count padding
                 break
@@ -942,16 +1116,27 @@ def decode_dataset(
             from .telemetry import blackbox
 
             stack.callback(blackbox.run_finalizers)
-        feed = device_prefetch(make_loader(config, dataset), dev)
+        feed = device_prefetch(make_loader(config, feed_ds), dev)
         stack.callback(feed.close)
         prof = stack.enter_context(ProfilerWindow(config, max_start=dataset.num_batches - 1, device=dev))
+        if mesh is not None:
+            from .parallel.mesh import sync_processes
+
+            # realign the ranks before the first decode's collectives
+            sync_processes("first_decode")
         batch_t0 = time.perf_counter_ns()
         for b, batch in enumerate(track(_timed_iter(feed, tel, "decode/data_wait"), dataset.num_batches,
                                         desc="decode")):
             prof.before_step(b)
             with tel.span("decode/dispatch"):
-                out = decode_batch(params, config, batch["images"], eos, valid_size,
-                                   return_alphas=config.save_attention_maps, probe=probe)
+                if mesh is None:
+                    out = decode_batch(params, config, batch["images"], eos, valid_size,
+                                       return_alphas=config.save_attention_maps, probe=probe)
+                else:
+                    from .parallel import train as parallel_train
+
+                    out = parallel_train.mesh_decode_batch(params, config, batch["images"], eos, valid_size,
+                                                           mesh, return_alphas=config.save_attention_maps)
             probe = None
             prof.after_step(b, out.words)
             if prev is not None:
@@ -966,6 +1151,63 @@ def decode_dataset(
         if prev is not None:
             with tel.span("decode/drain"):
                 drain(*prev)
+    if mesh is not None:
+        return _assemble_mesh_results(dataset, vocabulary, _gather_mesh_batches(gathered, mesh))
+    return results
+
+
+def _gather_mesh_batches(local: List[Tuple[np.ndarray, ...]], mesh) -> List[Tuple[np.ndarray, ...]]:
+    """Every data rank's beam-0 blocks of each batch, over the CPU gloo
+    group, stacked in data-index order into the global batch's rows (the
+    ranks along the model axis hold the same rows; the first of each data
+    row is taken)."""
+    from .parallel.collectives import gather_objects
+
+    per_rank = gather_objects(local, mesh)
+    mp = mesh.size("model")
+    rows = [per_rank[d * mp] for d in range(mesh.size("data"))]
+    return [tuple(np.concatenate(parts, axis=0) for parts in zip(*blocks)) for blocks in zip(*rows)]
+
+
+def _assemble_mesh_results(
+    dataset: DataSet, vocabulary: Vocabulary, gathered: List[Tuple[np.ndarray, ...]],
+) -> List[Dict[str, Any]]:
+    """The gathered beam-0 results of a mesh decode in dataset order — the
+    port of the JAX package's ``_assemble_mesh_results``.
+
+    ``gathered[b]`` = (words [B, T], lengths [B], scores [B][, alphas
+    [B, T, N]]) of global batch ``b``.  Each data rank's view holds the
+    contiguous block of the global batch its index owns, so row ``m`` of
+    gathered batch ``b`` is position ``b*B + m`` of the global order,
+    which for the unshuffled eval set is dataset row ``b*B + m``.
+    Positions at or past ``dataset.count`` are the trailing padding and
+    are dropped; then each image id is kept once."""
+    by_row: Dict[int, Tuple] = {}
+    for b, batch_arrays in enumerate(gathered):
+        B = batch_arrays[0].shape[0]
+        for m in range(B):
+            g = b * B + m
+            if g < dataset.count:                # trailing fake_count padding
+                by_row[g] = tuple(a[m] for a in batch_arrays)
+    results: List[Dict[str, Any]] = []
+    seen = set()
+    for g in sorted(by_row):                     # dataset order, each id once
+        image_id = int(dataset.image_ids[g])
+        if image_id in seen:
+            continue
+        seen.add(image_id)
+        word_row, length, score, *rest = by_row[g]
+        length = max(1, int(length))
+        row: Dict[str, Any] = {
+            "image_id": image_id,
+            "image_file": str(dataset.image_files[g]),
+            "caption": vocabulary.get_sentence(word_row[:length]),
+            "prob": float(np.exp(score)),
+        }
+        if rest:                                 # gathered beam-0 alphas
+            row["words"] = [vocabulary.words[w] for w in word_row[:length]]
+            row["alphas"] = rest[0][:length]     # [len, N]
+        results.append(row)
     return results
 
 
@@ -1133,41 +1375,62 @@ def evaluate(
     BLEU-1..4 / METEOR / ROUGE_L / CIDEr.
 
     ``prepared``: an existing ``(coco, dataset, vocabulary)`` from
-    :func:`prepare_eval_data`, so a sweep reads the captions once."""
-    check_ported(config)
+    :func:`prepare_eval_data`, so a sweep reads the captions once.
+
+    On a mesh every rank decodes and renders its share of the images;
+    rank 0 writes results.json and scores, the other ranks return {}."""
+    mesh = mesh_for(config)
     dev = resolve_device(device)
-    coco, dataset, vocabulary = prepared or prepare_eval_data(config)
+    if prepared is None:
+        with _rank_zero_first(mesh, "prepare_eval_data"):
+            prepared = prepare_eval_data(config)
+    coco, dataset, vocabulary = prepared
     if state is None:
         state = setup_state(config, load=True, model_file=model_file, device=dev)
 
     results = decode_dataset(config, state, dataset, vocabulary, device=dev)
     payload = [{"image_id": r["image_id"], "caption": r["caption"]} for r in results]
-    atomic_write(config.eval_result_file, "w", lambda f: json.dump(payload, f))
+    primary = mesh is None or mesh.rank == 0
+    if primary:
+        atomic_write(config.eval_result_file, "w", lambda f: json.dump(payload, f))
 
     if config.save_eval_result_as_image:
         os.makedirs(config.eval_result_dir, exist_ok=True)
-        _render_caption_images(results, config.eval_result_dir)
+        _render_caption_images(_local_render_rows(results, mesh), config.eval_result_dir)
     if config.save_attention_maps:
-        _save_attention_panels(results, config.eval_result_dir)
-        _export_attention_artifacts(results, config.eval_result_dir)
-
+        _save_attention_panels(_local_render_rows(results, mesh), config.eval_result_dir)
+        if primary:
+            _export_attention_artifacts(results, config.eval_result_dir)
+    if not primary:
+        return {}
     coco_res = coco.load_results(payload)
     return CocoEvalCap(coco, coco_res, eval_data=dataset).evaluate()
+
+
+def _local_render_rows(results: List[Dict[str, Any]], mesh) -> List[Dict[str, Any]]:
+    """This rank's share of the per-image artifacts: every rank holds the
+    whole result list after a mesh decode, so rank ``r`` of ``n`` renders
+    rows ``r, r + n, ...`` (the JAX package's partition)."""
+    return results if mesh is None else results[mesh.rank::mesh.world]
 
 
 def evaluate_sweep(config: Config, device=None) -> Dict[int, Dict[str, float]]:
     """Score every checkpoint under save_dir, in-process: the eval split is
     prepared once.  Writes ``<step>.txt`` score dumps next to the
-    checkpoints and returns {step: scores}."""
-    check_ported(config)
+    checkpoints and returns {step: scores} (on a mesh, rank 0; the other
+    ranks decode with it and return {step: {}})."""
+    mesh = mesh_for(config)
     dev = resolve_device(device)
-    prepared = prepare_eval_data(config)
+    with _rank_zero_first(mesh, "prepare_eval_data"):
+        prepared = prepare_eval_data(config)
     sweep: Dict[int, Dict[str, float]] = {}
     for step in lineage.checkpoint_steps(config.save_dir):
         path = os.path.join(config.save_dir, f"{step}.npz")
         state = state_from_flat(load_flat(path), config, dev, path)
         scores = evaluate(config, state=state, prepared=prepared, device=dev)
         sweep[step] = scores
+        if mesh is not None and mesh.rank != 0:
+            continue
         atomic_write(
             os.path.join(config.save_dir, f"{step}.txt"),
             "w",
@@ -1188,10 +1451,12 @@ def test(
     device=None,
 ) -> List[Dict[str, Any]]:
     """Caption every JPEG of ``test_image_dir``: captioned JPEGs and
-    results.csv."""
-    check_ported(config)
+    results.csv (on a mesh: every rank renders its share of the images,
+    rank 0 writes results.csv)."""
+    mesh = mesh_for(config)
     dev = resolve_device(device)
-    dataset, vocabulary = prepare_test_data(config)
+    with _rank_zero_first(mesh, "prepare_test_data"):
+        dataset, vocabulary = prepare_test_data(config)
     if dataset.count == 0:
         print(f"no images found in {config.test_image_dir}")
         return []
@@ -1201,9 +1466,12 @@ def test(
     results = decode_dataset(config, state, dataset, vocabulary, device=dev)
 
     os.makedirs(config.test_result_dir, exist_ok=True)
-    _render_caption_images(results, config.test_result_dir)
+    _render_caption_images(_local_render_rows(results, mesh), config.test_result_dir)
     if config.save_attention_maps:
-        _save_attention_panels(results, config.test_result_dir)
+        _save_attention_panels(_local_render_rows(results, mesh), config.test_result_dir)
+    if mesh is not None and mesh.rank != 0:
+        return results
+    if config.save_attention_maps:
         _export_attention_artifacts(results, config.test_result_dir)
 
     import pandas as pd

@@ -46,7 +46,18 @@ def run_id() -> str:
     return RUN_ID
 
 
+# (rank, world) of a torch.distributed launch; (0, 1) until
+# parallel.mesh.initialize_distributed joins one
+_IDENTITY = [0, 1]
+
+
 def process_identity() -> tuple:
-    """(process_index, process_count) stamped on multi-host artifacts.  The
-    port runs one process on one device, so (0, 1)."""
-    return 0, 1
+    """(process_index, process_count) stamped on multi-host artifacts: this
+    rank and the launch's world size, (0, 1) in a single process."""
+    return _IDENTITY[0], _IDENTITY[1]
+
+
+def set_process_identity(index: int, count: int) -> None:
+    """Record this process's rank and the world size (the mesh bootstrap
+    calls it once)."""
+    _IDENTITY[:] = [int(index), int(count)]

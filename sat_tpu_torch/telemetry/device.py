@@ -42,6 +42,9 @@ import math
 from typing import Any, Dict, List
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.collectives import MAX, all_reduce_
 
 DIAG_LEVELS = ("off", "basic", "full")
 
@@ -85,37 +88,52 @@ def _layer_groups(tree: Dict[str, Any]) -> Dict[str, Any]:
     return groups
 
 
-def attention_entropy(alphas: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+def attention_entropy(alphas: torch.Tensor, masks: torch.Tensor, rows=None, positions=None) -> torch.Tensor:
     """Mean per-word attention entropy over real (masked-in) words.
-    alphas [B, T, N] softmax rows; masks [B, T]."""
+    alphas [B, T, N] softmax rows; masks [B, T].  On a mesh ``rows`` is
+    the group over which the batch's rows are split and ``positions`` the
+    one over which the grid is (context parallelism): the sums are reduced
+    over them (each None when unsplit)."""
     a = alphas.float()
-    h = -torch.sum(a * torch.log(torch.clamp(a, 1e-10, 1.0)), dim=-1)  # [B, T]
+    h = all_reduce_(-torch.sum(a * torch.log(torch.clamp(a, 1e-10, 1.0)), dim=-1), positions)  # [B, T]
     m = masks.float()
-    return torch.sum(h * m) / torch.clamp(torch.sum(m), min=1.0)
+    sums = all_reduce_(torch.stack([torch.sum(h * m), torch.sum(m)]), rows)
+    return sums[0] / torch.clamp(sums[1], min=1.0)
 
 
-def alpha_coverage_deviation(alphas: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+def alpha_coverage_deviation(alphas: torch.Tensor, masks: torch.Tensor, rows=None, positions=None) -> torch.Tensor:
     """mean_{b,i} (1 - Σ_t α_ti)² over masked alphas: the unscaled
-    doubly-stochastic attention penalty."""
+    doubly-stochastic attention penalty (``rows``/``positions`` as in
+    :func:`attention_entropy`)."""
     a = alphas.float() * masks.float().unsqueeze(-1)
     d = 1.0 - a.sum(dim=1)                                              # [B, N]
-    return torch.mean(d * d)
+    sums = torch.stack([torch.sum(d * d), torch.full((), d.numel(), dtype=torch.float32, device=d.device)])
+    sums = all_reduce_(all_reduce_(sums, rows), positions)
+    return sums[0] / sums[1]
 
 
 def loss_taps(
-    level: str, *, alphas: torch.Tensor, masks: torch.Tensor, logits: torch.Tensor
+    level: str, *, alphas: torch.Tensor, masks: torch.Tensor, logits: torch.Tensor,
+    rows=None, positions=None, columns=None,
 ) -> Dict[str, torch.Tensor]:
     """Forward-side taps, computed in ``compute_loss`` where the alphas and
-    logits are live.  Detached: a tap never reaches the gradient."""
+    logits are live.  Detached: a tap never reaches the gradient.  On a
+    mesh, the groups over which the rows, the grid's positions and the
+    logits' columns are split (None where whole): the taps are those of
+    the global batch."""
     if level == "off":
         return {}
     alphas, logits = alphas.detach(), logits.detach()
-    ent = attention_entropy(alphas, masks)
+    ent = attention_entropy(alphas, masks, rows, positions)
+    n = alphas.shape[-1] * (1 if positions is None else dist.get_world_size(positions))
+    peak = torch.max(torch.abs(logits.float()))
+    for group in (rows, columns):
+        all_reduce_(peak, group, MAX)
     return {
         "diag/attn_entropy": ent,
-        "diag/attn_entropy_frac": ent / math.log(alphas.shape[-1]),
-        "diag/alpha_coverage_dev": alpha_coverage_deviation(alphas, masks),
-        "diag/logit_max": torch.max(torch.abs(logits.float())),
+        "diag/attn_entropy_frac": ent / math.log(n),
+        "diag/alpha_coverage_dev": alpha_coverage_deviation(alphas, masks, rows, positions),
+        "diag/logit_max": peak,
     }
 
 

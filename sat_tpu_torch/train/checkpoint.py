@@ -24,9 +24,16 @@ The training side: :func:`state_to_flat` snapshots a ``TrainState``
 ``global_step``) into numpy arrays that own their bytes;
 :func:`save_checkpoint` and :class:`AsyncCheckpointWriter` write it as an
 atomic npz with the ``config.json`` sidecar and the lineage tail (sha256
-sidecar with the vocabulary and a one-device topology, verify,
+sidecar with the vocabulary and the run's topology, verify,
 ``LAST_GOOD``, retention); :func:`restore_checkpoint` loads a file into
 a ``TrainState`` in place, skipping names or shapes it does not have.
+
+A mesh run's checkpoint holds full arrays, as the JAX package's does:
+the save gathers the vocab-sharded leaves over the model group, rank 0
+writes, and every rank waits for the write.  A restore under another
+topology than the sidecar records (an elastic resume) is counted in
+``ckpt/elastic_restores`` and said on stderr; on a vocab-parallel mesh
+it loads each sharded leaf's block of the file's full array.
 """
 
 from __future__ import annotations
@@ -385,16 +392,46 @@ def to_device(node, device):
 # ---------------------------------------------------------------------------
 
 
-def _topology(state) -> Dict[str, Any]:
-    """The one-device topology recorded in the lineage sidecar."""
-    device = next(named_leaves(state.params, ""))[1].device
-    return {
-        "device_count": 1,
-        "platform": "gpu" if device.type == "cuda" else device.type,
-        "process_count": 1,
-        "mesh_shape": [1],
-        "mesh_axes": ["data"],
-    }
+def _topology(config: Config, state) -> Dict[str, Any]:
+    """The topology recorded in the lineage sidecar: the JAX package's
+    keys, from this launch (``parallel.mesh.topology``) and the config's
+    mesh."""
+    from ..parallel.mesh import topology
+
+    return topology(config, next(named_leaves(state.params, ""))[1].device)
+
+
+# elastic restores since the last take_elastic_restores(): a restore
+# before a run (the CLI's --load) precedes the run's fresh telemetry
+# registry, which counts them again when it starts
+_ELASTIC = [0]
+
+
+def take_elastic_restores() -> int:
+    """The elastic restores noted since the last call (and reset)."""
+    n, _ELASTIC[0] = _ELASTIC[0], 0
+    return n
+
+
+def _note_elastic_restore(path: str) -> None:
+    """Count and say on stderr a restore onto another number of devices
+    than the checkpoint was written from (an elastic resume).  The state
+    is full arrays on disk, so the restore itself does not depend on it."""
+    from ..parallel.mesh import world_size
+
+    recorded = lineage.read_sidecar_meta(path).get("topology")
+    if not recorded or recorded.get("device_count") is None:
+        return
+    now, then = world_size(), int(recorded["device_count"])
+    if then != now:
+        telemetry.count("ckpt/elastic_restores")
+        _ELASTIC[0] += 1
+        print(
+            f"sat_tpu_torch: elastic resume — checkpoint {os.path.basename(path)} was written on {then} "
+            f"device(s) (mesh {recorded.get('mesh_shape')}), restoring onto {now}; the state is "
+            "placed on the current mesh",
+            file=sys.stderr, flush=True,
+        )
 
 
 def _write_flat(
@@ -435,14 +472,30 @@ def _write_flat(
     telemetry.gauge("ckpt/last_save_unix", time.time())
 
 
-def save_checkpoint(state, config: Config, save_dir: Optional[str] = None, healthy: bool = True) -> str:
+def save_checkpoint(state, config: Config, save_dir: Optional[str] = None, healthy: bool = True,
+                    mesh=None) -> str:
     """Write ``<global_step>.npz`` and ``config.json`` under save_dir;
     ``healthy=False`` (the sentinel saw non-finite metrics) writes the
-    file but withholds the ``LAST_GOOD`` blessing."""
+    file but withholds the ``LAST_GOOD`` blessing.
+
+    ``mesh`` (a launch of several ranks): every rank calls it; the
+    vocab-sharded leaves are gathered full in one collective, rank 0
+    writes, and every rank leaves after the write."""
     save_dir = save_dir or config.save_dir
-    flat = state_to_flat(state)
-    path = os.path.join(save_dir, f"{int(flat['global_step'])}.npz")
-    _write_flat(flat, path, config, save_dir, _topology(state), healthy=healthy)
+    path = os.path.join(save_dir, f"{int(state.step)}.npz")
+    if mesh is None or mesh.world == 1:
+        _write_flat(state_to_flat(state), path, config, save_dir, _topology(config, state), healthy=healthy)
+        return path
+    from ..parallel.mesh import sync_processes
+    from ..utils.dist import gather_tree_replicated
+
+    full = state._replace(
+        params=gather_tree_replicated(state.params, config, mesh),
+        opt_state=gather_tree_replicated(state.opt_state, config, mesh),
+    )
+    if mesh.rank == 0:
+        _write_flat(state_to_flat(full), path, config, save_dir, _topology(config, state), healthy=healthy)
+    sync_processes(f"checkpoint {int(state.step)}")
     return path
 
 
@@ -495,7 +548,7 @@ class AsyncCheckpointWriter:
         save_dir = save_dir or config.save_dir
         flat = state_to_flat(state)
         path = os.path.join(save_dir, f"{int(flat['global_step'])}.npz")
-        self._q.put(((flat, path, config, save_dir, _topology(state)), healthy))
+        self._q.put(((flat, path, config, save_dir, _topology(config, state)), healthy))
         return path
 
     def flush(self) -> None:
@@ -520,20 +573,31 @@ def restore_checkpoint(
     model_file: Optional[str] = None,
     save_dir: Optional[str] = None,
     expect_vocab: Optional[dict] = None,
+    mesh=None,
+    placement: Optional[Config] = None,
 ):
     """Load a checkpoint into ``state`` in place: ``model_file`` as given,
     else the newest checkpoint under ``save_dir`` that verifies and loads
     (:func:`walk_back`).  Entries whose name or shape the state lacks are
     skipped (a trimmed or partial file loads what it has).  Returns
     (state with the file's ``global_step``, tensors loaded); the step is
-    not counted, so 0 means nothing usable was loaded."""
+    not counted, so 0 means nothing usable was loaded.
+
+    ``mesh`` and ``placement`` (the placement rule's config): ``state`` is
+    this rank's, so each vocab-sharded leaf takes its block of the file's
+    full array."""
     if model_file:
         check_vocab(model_file, expect_vocab)
-        flat = load_flat(model_file)
+        flat, source = load_flat(model_file), model_file
     elif save_dir:
-        flat, _ = walk_back(save_dir, expect_vocab)
+        flat, source = walk_back(save_dir, expect_vocab)
     else:
         raise FileNotFoundError(f"no checkpoint found (save_dir={save_dir!r})")
+    _note_elastic_restore(source)
+    if mesh is not None and placement is not None:
+        from ..parallel.sharding import shard_flat
+
+        flat = shard_flat(flat, placement, mesh)
     count = (
         assign_flat(state.params, "params/", flat)
         + assign_flat(state.batch_stats, "batch_stats/", flat)

@@ -115,15 +115,19 @@ class Optimizer:
 
     @torch.no_grad()
     def step(
-        self, trainable: Tree, grads: Tree, state: List[Any], updates: Optional[List[torch.Tensor]] = None
+        self, trainable: Tree, grads: Tree, state: List[Any], updates: Optional[List[torch.Tensor]] = None,
+        norm_sq: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """One update of ``trainable`` and ``state`` in place; returns the
         global norm of ``grads`` before clipping.  A list passed as
         ``updates`` receives each leaf's applied update (optax's
-        ``updates``), in leaf order."""
+        ``updates``), in leaf order.  ``norm_sq`` maps the leaves'
+        squared sums to the squared global norm (a vocab-parallel step adds
+        its sharded leaves' sums over the model group); default their sum."""
         c = self.config
         params, gs = _leaves(trainable), _leaves(grads)
-        norm = torch.sqrt(sum((g * g).sum() for g in gs))
+        squares = [(g * g).sum() for g in gs]
+        norm = torch.sqrt(sum(squares) if norm_sq is None else norm_sq(squares))
         if self.clip:
             clipped = norm >= self.clip
             gs = [torch.where(clipped, g / norm * self.clip, g) for g in gs]

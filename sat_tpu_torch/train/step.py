@@ -26,6 +26,10 @@ import torch
 
 from ..config import Config
 from ..models.captioner import compute_loss, init_variables
+from ..parallel.collectives import MAX, all_reduce_, flat_all_reduce_
+from ..parallel.mesh import SINGLE
+from ..parallel.sharding import grad_norm_sq
+from ..utils.dist import gather_tree_replicated
 from .optimizer import _leaves, make_optimizer
 
 Tree = Dict[str, Any]
@@ -85,12 +89,21 @@ def model_inputs(state: TrainState) -> Tree:
     return {**state.params, "batch_stats": state.batch_stats} if state.batch_stats else state.params
 
 
-def _attention_metrics(att: torch.Tensor) -> Dict[str, torch.Tensor]:
-    return {
-        "attention/mean": att.mean(),
-        "attention/std": att.std(correction=0),
-        "attention/max": att.max(),
-    }
+def _attention_metrics(att: torch.Tensor, groups=()) -> Dict[str, torch.Tensor]:
+    """``attention/mean|std|max`` over the global [B, N]: on a mesh each
+    rank holds a block, and its sums and max are reduced over ``groups``
+    (None where the axis is whole)."""
+    att = att.float()
+    sums = torch.stack([att.sum(), torch.full((), att.numel(), dtype=torch.float32, device=att.device)])
+    peak = att.max()
+    for group in groups:
+        all_reduce_(sums, group)
+        all_reduce_(peak, group, MAX)
+    mean = sums[0] / sums[1]
+    squares = ((att - mean) ** 2).sum()
+    for group in groups:
+        all_reduce_(squares, group)
+    return {"attention/mean": mean, "attention/std": torch.sqrt(squares / sums[1]), "attention/max": peak}
 
 
 @torch.no_grad()
@@ -102,7 +115,7 @@ def _copy_into(dst: Tree, src: Tree) -> None:
             dst[key].copy_(value)
 
 
-def make_train_step(config: Config):
+def make_train_step(config: Config, mesh=None):
     """Returns ``train_step(state, batch, generator) -> (state, metrics)``.
 
     ``batch``: images, word_idxs, masks on the params' device;
@@ -114,8 +127,19 @@ def make_train_step(config: Config):
     the loop fetches), the ``diag/*`` taps of ``diag_level``
     (``telemetry.device``).  With
     ``train_cnn``, ResNet50's running statistics take the forward's
-    update, in place."""
+    update, in place.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the step of this rank
+    (``parallel.train``): its rows and blocks in, the loss's global
+    normalization (``compute_loss(mesh=)``), the gradients summed over
+    the data group in one bucketed ``all_reduce`` before the clip, the
+    clip's norm over the whole arrays, the metrics global.  Without a
+    mesh each of these collectives is the identity."""
     optimizer = make_optimizer(config)
+    mesh = mesh or SINGLE
+    cp = config.context_parallel > 1
+    # the groups over which a rank's attentions [B, N] are a block
+    att_groups = (mesh.group("data"), mesh.group("model") if cp else None)
     # the taps are read only where the loop fetches the metrics (every
     # log_every-th step); on the other steps they would cost host time for
     # values nobody reads, so those steps run without them
@@ -126,25 +150,26 @@ def make_train_step(config: Config):
         leaves = _leaves(trainable)
         tapped = config.diag_level != "off" and (state.step + 1) % config.log_every == 0
         total, aux = compute_loss(
-            model_inputs(state), config if tapped else untapped, batch, generator, train=True,
+            model_inputs(state), config if tapped else untapped, batch, generator, train=True, mesh=mesh,
         )
         grads = torch.autograd.grad(total, leaves)
+        flat_all_reduce_(list(grads), mesh.group("data"))  # the one gradient bucket
         updates = [] if tapped else None
-        grad_norm = optimizer.step(trainable, _like(trainable, grads), state.opt_state, updates)
+        grad_norm = optimizer.step(trainable, _like(trainable, grads), state.opt_state, updates,
+                                   norm_sq=grad_norm_sq(trainable, config, mesh))
         if aux["batch_stats"] is not None:
             _copy_into(state.batch_stats, aux["batch_stats"])
         metrics = {k: v.detach() for k, v in aux["metrics"].items()}
         metrics["grad_norm"] = grad_norm
-        metrics.update(_attention_metrics(aux["attentions"].detach()))
+        metrics.update(_attention_metrics(aux["attentions"].detach(), att_groups))
         if updates is not None:
             # update-side diag taps: merged into the metrics, so they ride
-            # the loop's one log_every fetch
+            # the loop's one log_every fetch; the norms over the whole arrays
             from ..telemetry.device import grad_taps
 
-            metrics.update(grad_taps(
-                config.diag_level, grads=_like(trainable, grads), updates=_like(trainable, updates),
-                params=trainable,
-            ))
+            grads, updates, params = (gather_tree_replicated(t, config, mesh) for t in (
+                _like(trainable, grads), _like(trainable, updates), trainable))
+            metrics.update(grad_taps(config.diag_level, grads=grads, updates=updates, params=params))
         return state._replace(step=state.step + 1), metrics
 
     return train_step
@@ -165,6 +190,10 @@ def make_eval_loss_step(config: Config):
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The dropout generator of global step ``step``: seeded from
     (``seed`` + 1, ``step``), as ``jax.random.fold_in(root, step)`` keys the
-    JAX package's steps, so a resumed run replays the same masks."""
+    JAX package's steps, so a resumed run replays the same masks.
+
+    ``rng_impl`` is accepted and has no effect: it picks JAX's random-bit
+    generator, and torch draws dropout masks with its own (Philox on the
+    card), so the port's masks never equal the JAX package's bits."""
     value = int(np.random.SeedSequence((seed + 1, step)).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(value)

@@ -372,11 +372,13 @@ def test_cli_dispatches_eval_test_and_sweep(monkeypatch, capsys):
     ids=lambda k: next(iter(k)),
 )
 def test_unported_eval_knobs_raise(knob, tmp_path):
+    """A mesh config in a single process raises in every decode entry
+    point, naming the torchrun launch that runs it."""
     _, tc = configs(**knob, save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        runtime.check_ported(tc)
+    with pytest.raises((RuntimeError, ValueError), match="torch.distributed.run"):
+        runtime.mesh_for(tc)
     for entry in (runtime.evaluate, runtime.test, runtime.evaluate_sweep):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises((RuntimeError, ValueError), match="torch.distributed.run"):
             entry(tc, device="cpu")
 
 

@@ -220,8 +220,8 @@ def test_sentinel_rollback_restores_last_good_and_moves_past(coco_fixture, tmp_p
     that never saw it."""
     real = step_mod.make_train_step
 
-    def poisoning(config):
-        step = real(config)
+    def poisoning(config, mesh=None):
+        step = real(config, mesh)
 
         def run(state, batch, generator):
             state, metrics = step(state, batch, generator)
@@ -289,18 +289,19 @@ def test_cli_train_needs_a_card_unless_patched_to_the_cpu(coco_fixture, tmp_path
     [
         {"mesh_shape": (2, 1)},
         {"context_parallel": 2},
-        {"fleet_telemetry": True},
     ],
     ids=lambda k: next(iter(k)),
 )
 def test_unported_train_knobs_raise(coco_fixture, tmp_path, knob):
+    """A mesh config in a single process raises, naming the torchrun
+    launch that runs it (tests/test_torch_parallel_runtime.py runs it)."""
     config = port_config(coco_fixture, str(tmp_path)).replace(**knob)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises((RuntimeError, ValueError), match="torch.distributed.run"):
         runtime.train(config, device="cpu")
 
 
 @pytest.mark.parametrize(
-    "knob", ["remat_decoder", "remat_cnn", "diag_level", "telemetry", "blackbox", "profile_dir"],
+    "knob", ["remat_decoder", "remat_cnn", "diag_level", "telemetry", "blackbox", "profile_dir", "fleet_telemetry"],
 )
 def test_ported_train_knobs_act(coco_fixture, trained, tmp_path, monkeypatch, knob):
     """Each knob acts in ``runtime.train`` and leaves its mark: the remats
@@ -308,7 +309,8 @@ def test_ported_train_knobs_act(coco_fixture, trained, tmp_path, monkeypatch, kn
     plain run's (dropout on); ``diag_level`` adds ``diag/*`` columns to
     metrics.jsonl; ``telemetry`` writes the trace, breakdown, heartbeat,
     telemetry.jsonl and compile report; ``blackbox`` the recorder's ring;
-    ``profile_dir`` a torch.profiler trace."""
+    ``profile_dir`` a torch.profiler trace; ``fleet_telemetry`` the one
+    process's sidecar and ``fleet.json``."""
     from sat_tpu_torch import telemetry
     from sat_tpu_torch.models import captioner, decoder
     from sat_tpu_torch.telemetry import blackbox
@@ -321,6 +323,7 @@ def test_ported_train_knobs_act(coco_fixture, trained, tmp_path, monkeypatch, kn
         "telemetry": dict(telemetry=True, heartbeat_interval=0.05),
         "blackbox": dict(blackbox=True),
         "profile_dir": dict(profile_dir=str(tmp_path / "prof"), profile_start_step=1, profile_num_steps=1),
+        "fleet_telemetry": dict(fleet_telemetry=True, telemetry=True),
     }[knob]
     config = port_config(coco_fixture, str(tmp_path)).replace(max_steps=3, telemetry_dir=tdir, **knobs)
     recomputes = []
@@ -357,6 +360,10 @@ def test_ported_train_knobs_act(coco_fixture, trained, tmp_path, monkeypatch, kn
     elif knob == "blackbox":
         ring = os.path.join(tdir, "blackbox", "seg_000.jsonl")
         assert "train_start" in open(ring).read()
+    elif knob == "fleet_telemetry":
+        fleet = json.load(open(os.path.join(tdir, "fleet.json")))
+        assert fleet["process_count"] == 1 and [h["step"] for h in fleet["hosts"]] == [3]
+        assert os.path.exists(os.path.join(tdir, "heartbeat_p0.json"))
     else:
         (window,) = os.listdir(config.profile_dir)
         assert os.path.exists(os.path.join(config.profile_dir, window, "trace.json"))
@@ -429,8 +436,8 @@ def test_sigterm_stops_at_a_step_boundary_and_saves(coco_fixture, tmp_path, monk
 
     real = step_mod.make_train_step
 
-    def signalling(config):
-        step = real(config)
+    def signalling(config, mesh=None):
+        step = real(config, mesh)
 
         def run(state, batch, generator):
             if state.step == 1:

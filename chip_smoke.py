@@ -85,8 +85,8 @@ Phases, each fatal on failure:
 10. test — ``--phase test`` over 7 JPEGs: results.csv with 7 rows and 7
    captioned ``*_result.jpg``.
 11. eval reference — the eval path at the small float32 size through
-   ``runtime.evaluate`` (attention maps on) and ``decode_dataset``, on
-   the card and on the CPU: the same captions and scores, prob and
+   ``runtime.evaluate`` (attention maps on) and ``decode_dataset`` over
+   the fixture's first 12 images, on the card and on the CPU: the same captions and scores, prob and
    alphas within 1e-4; the card's run launched the kernel, the CPU's not.
 12. eval steady — ``decode_dataset`` at full width over 400 JPEGs of
    480 px (20 batches of 20): images/s of two warm passes, then the
@@ -159,9 +159,10 @@ Phases, each fatal on failure:
    checkpoints) on the eval steady fixture with two captions an image
    (800 pairs): ``python -m sat_tpu_torch.cli --phase train`` in a fresh
    process for 30 steps (checkpoints 10, 20, 30 verify, LAST_GOOD 30,
-   finite metrics, the loss falls, no kernel launched); ``--load`` to 40
-   (resumes at 30, 40.npz holds 30.npz's names); ``--phase test`` on 7
-   JPEGs with 40.npz.  The 30-step run has ``--telemetry --blackbox
+   finite metrics, the loss falls, no kernel launched); a ``--load``
+   resume is the elastic and the ResNet50 train phases' work, ``--phase
+   test`` the test phase's, a trained checkpoint's decode the quality
+   phase's.  The 30-step run has ``--telemetry --blackbox
    --diag_level full --metrics_port`` and a ``profile_dir``: the trace,
    a breakdown within 5%, ``telemetry.jsonl`` one row a boundary with
    finite ``diag/*``, ``diag/*`` columns in metrics.jsonl, a final
@@ -265,6 +266,27 @@ Phases, each fatal on failure:
 26. elastic — the reference's resume of the (2,1) 6.npz in one process:
    ``ckpt/elastic_restores`` 1 in its heartbeat and the stderr line, the
    6.npz sidecar recording 2 processes and mesh [2, 1], 8.npz one.
+27. quality — the quality protocol through its tool at full width
+   (``python -m sat_tpu_torch.tools.quality_run``: VGG16 at 224 px,
+   ``--train_cnn``, the basic corpus cut to 16 images, batch 8, the
+   protocol's vocabulary of 200, bf16) for 200 steps (of its 1200), then
+   the untrained init (``--steps 0``) evaluated the same way: BLEU-4 at
+   least 0.5 trained and at most 0.05 untrained, B1 once a decode step of
+   each beam eval and never in training; ``export_reference`` and
+   ``trim_model`` on the trained checkpoint (the
+   exported npy imports back bitwise, the trimmed npz holds every
+   non-optimizer array bitwise).
+28. replay — the trained checkpoint served in batch and in continuous
+   mode with the quality plane on (every request an outlier, the
+   recorder's rate limit off, both into one exemplar directory): bursts
+   of 6 concurrent corpus JPEGs, then ``python -m
+   sat_tpu_torch.tools.replay_exemplar --all`` in a fresh process exits
+   0 (every exemplar replayed bitwise in the geometry it was captured in,
+   some captured in a bucket or lane wider than 1; B1 for the batch
+   rows, B2 for the continuous ones); the rows captured wider than 1
+   replayed alone at bucket 1 as well (how many captions and alphas
+   digests then differ, reported), and ``--diff`` against the untrained
+   init reports each exemplar's divergence.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
@@ -1530,19 +1552,27 @@ def caption_words():
     return words
 
 
-def run_cli(args, where: str, timeout: int = 600, rc: int = 0, env=None):
+# Runs ``main(argv)`` of the tool module named first (``sat_tpu_torch.
+# tools.<name>``) in a fresh process with CLI_HARNESS's counts and timers.
+TOOL_HARNESS = CLI_HARNESS.replace("from sat_tpu_torch import cli, runtime", "import importlib\nfrom sat_tpu_torch import runtime").replace(
+    "rc = cli.main(sys.argv[1:])", "rc = importlib.import_module(sys.argv[1]).main(sys.argv[2:])")
+
+
+def run_cli(args, where: str, timeout: int = 600, rc: int = 0, env=None, harness: str = CLI_HARNESS):
     """``sat_tpu_torch.cli`` with ``args`` in a fresh process (``env`` added
-    to this one's); returns (its tally, its standard output), the tally
+    to this one's; with ``harness=TOOL_HARNESS`` the tool module named by
+    ``args[0]``); returns (its tally, its standard output), the tally
     holding the wall seconds and the end of standard error.  Fails on an
     exit code other than ``rc``."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", CLI_HARNESS, *args], cwd=here,
+    out = subprocess.run([sys.executable, "-c", harness, *args], cwd=here,
                          capture_output=True, text=True, timeout=timeout,
                          env=None if env is None else {**os.environ, **env})
     wall = time.perf_counter() - t0
     if out.returncode != rc:
-        fail(f"{where}: python -m sat_tpu_torch.cli {' '.join(args)} exited {out.returncode}, "
+        what = "python -m sat_tpu_torch.cli" if harness is CLI_HARNESS else "python -m"
+        fail(f"{where}: {what} {' '.join(args)} exited {out.returncode}, "
              f"expected {rc}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
     if not last.startswith("chip_smoke counts "):
@@ -1725,8 +1755,9 @@ def test_phase(np, config, card: str):
 
 def eval_reference_phase(np, config):
     """The eval path at the small float32 size through ``runtime.evaluate``
-    (attention maps on) and ``decode_dataset``, on the card and on the
-    CPU: identical captions and scores, prob within 1e-4 relative, alphas
+    (attention maps on) and ``decode_dataset`` over the eval fixture's
+    first 12 images (24 annotation ids), on the card and on the CPU:
+    identical captions and scores, prob within 1e-4 relative, alphas
     within 1e-4."""
     from sat_tpu_torch import runtime
     from sat_tpu_torch.data.dataset import prepare_eval_data
@@ -1735,7 +1766,8 @@ def eval_reference_phase(np, config):
     small = config.replace(
         image_size=32, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16,
         dim_attend_layer=16, dim_decode_layer=32, vocabulary_size=50, compute_dtype="float32",
-        save_attention_maps=True, save_dir=os.path.join(os.path.dirname(config.save_dir), "small"),
+        save_attention_maps=True, max_eval_ann_num=24,
+        save_dir=os.path.join(os.path.dirname(config.save_dir), "small"),
         vocabulary_file=os.path.join(os.path.dirname(config.save_dir), "small.csv"),
     )
     write_vocabulary(np, small.vocabulary_file, small.vocabulary_size, caption_words())
@@ -2696,7 +2728,7 @@ def train_reference_phase(torch, np, fa):
           f"{config.max_caption_length} times (T); the kernel refused a grad-requiring input", flush=True)
 
 
-TRAIN_STEPS, TRAIN_SAVE, TRAIN_LOG, TRAIN_RESUMED = 30, 10, 5, 40
+TRAIN_STEPS, TRAIN_SAVE, TRAIN_LOG = 30, 10, 5
 
 
 def train_config(steady_root: str, tmp: str):
@@ -2737,13 +2769,8 @@ def train_phase(np, config, card: str):
     """``python -m sat_tpu_torch.cli --phase train --config train.json`` in
     a fresh process at full width, 30 steps: exit 0, the train step
     launches neither kernel, 10/20/30.npz verify, LAST_GOOD 30, every
-    metrics row finite and the loss falls; then ``--load`` to step 40 (the
-    resume starts at 30, 40.npz holds the names 30.npz holds); then
-    ``--phase test`` on 7 JPEGs with the trained checkpoint."""
-    import csv
-
+    metrics row finite and the loss falls."""
     from sat_tpu_torch.resilience import lineage
-    from sat_tpu_torch.train.checkpoint import load_flat
 
     write_vocabulary(np, config.vocabulary_file, config.vocabulary_size, caption_words())
     path = os.path.join(os.path.dirname(config.save_dir), "train.json")
@@ -2786,39 +2813,6 @@ def train_phase(np, config, card: str):
           f"{[round(x, 4) for x in losses]} (mean {first:.4f} -> {last:.4f}); checkpoints {steps} verify, "
           f"LAST_GOOD {TRAIN_STEPS}; fused_attend launches 0, masked 0", flush=True)
     train_artifacts(config, tdir, pdir, rows, poked, card)
-
-    resumed, stdout = run_cli(["--phase", "train", "--config", path, "--load", "--set", f"max_steps={TRAIN_RESUMED}"],
-                              "train resume")
-    if f"(step {TRAIN_STEPS})" not in stdout:
-        fail(f"train resume: did not restore step {TRAIN_STEPS}:\n{stdout[-2000:]}")
-    rows = metrics_rows(np, config, "train resume")
-    if [r["step"] for r in rows][-2:] != [TRAIN_RESUMED - TRAIN_LOG, TRAIN_RESUMED] or lineage.last_good_step(
-            config.save_dir) != TRAIN_RESUMED:
-        fail(f"train resume: metrics steps {[r['step'] for r in rows]}, LAST_GOOD "
-             f"{lineage.last_good_step(config.save_dir)}")
-    names = set(load_flat(os.path.join(config.save_dir, f"{TRAIN_STEPS}.npz")))
-    resumed_names = set(load_flat(os.path.join(config.save_dir, f"{TRAIN_RESUMED}.npz")))
-    if names != resumed_names:
-        fail(f"train resume: {TRAIN_RESUMED}.npz names differ from {TRAIN_STEPS}.npz's: "
-             f"{sorted(names ^ resumed_names)[:6]}")
-    print(f"train resume on {card}: --load from step {TRAIN_STEPS} to {TRAIN_RESUMED} in {resumed['wall_s']:.2f}s; "
-          f"{TRAIN_RESUMED}.npz holds the {len(resumed_names)} names of {TRAIN_STEPS}.npz; total_loss at "
-          f"{TRAIN_RESUMED - TRAIN_LOG}, {TRAIN_RESUMED}: "
-          f"{[round(r['total_loss'], 4) for r in rows[-2:]]}", flush=True)
-
-    model = os.path.join(config.save_dir, f"{TRAIN_RESUMED}.npz")
-    test_cfg = os.path.join(os.path.dirname(config.save_dir), "test.json")
-    config.replace(phase="test", max_steps=0).save(test_cfg)
-    tested, _ = run_cli(["--config", test_cfg, "--model_file", model], "train test")
-    check_tally(tested, "train test", batches=1)
-    with open(config.test_result_file, newline="") as f:
-        captions = list(csv.DictReader(f))
-    if len(captions) != 7:
-        fail(f"train test: results.csv has {len(captions)} rows, expected 7")
-    print(f"train test on {card}: --phase test with the trained {TRAIN_RESUMED}.npz on 7 JPEGs, results.csv 7 rows; "
-          f"fused_attend launches {tested['launches']} over {tested['steps']} steps; sample "
-          f"{captions[0]['caption']!r}", flush=True)
-    return tested["launches"]
 
 
 def scrape_and_signal(port: int, out: dict, limit_s: float = 300.0) -> None:
@@ -4485,6 +4479,187 @@ def elastic_phase(np, tmp: str, card: str, got: dict):
         fail(f"elastic: LAST_GOOD {lineage.last_good_step(dp.save_dir)}, expected {MESH_STEPS + 2}")
 
 
+QUALITY_IMAGES = 16   # of the basic corpus's 48: 32 pairs, 4 steps an epoch at batch 8
+QUALITY_STEPS = 200   # the protocol's 1200 cut to fit the run
+QUALITY_BLEU4 = (0.5, 0.05)   # trained at least, untrained init at most
+
+
+def quality_phase(torch, np, tmp: str, card: str) -> dict:
+    """The quality protocol through ``python -m sat_tpu_torch.tools.
+    quality_run`` at full width (VGG16 at 224 px, ``--train_cnn``, batch
+    8, vocabulary 200, bf16) on ``QUALITY_IMAGES`` images for
+    ``QUALITY_STEPS`` steps, then the run's untrained init (its seed's
+    state, saved as 0.npz) evaluated in-process with the same eval config.
+    Gates BLEU-4 (``QUALITY_BLEU4``) and B1 once a decode step of each
+    beam eval; then ``export_reference`` (the npy imports back bitwise)
+    and ``trim_model`` (every non-optimizer array kept bitwise) on the
+    trained checkpoint.  Returns what the replay phase needs and the B1
+    launches."""
+    from sat_tpu_torch import runtime
+    from sat_tpu_torch.cli import build_config
+    from sat_tpu_torch.ops import fused_attend as fa
+    from sat_tpu_torch.tools import export_reference, trim_model
+    from sat_tpu_torch.tools.quality_run import protocol_overrides, serving_state, set_args
+    from sat_tpu_torch.train.checkpoint import load_flat, params_to_flat, save_checkpoint
+
+    out = os.path.join(tmp, "quality")
+    tally, stdout = run_cli(["sat_tpu_torch.tools.quality_run", "--steps", str(QUALITY_STEPS), "--out", out,
+                             "--num-images", str(QUALITY_IMAGES), "--batch-size", "8"], "quality", timeout=900,
+                            harness=TOOL_HARNESS)
+    check_tally(tally, "quality", batches=QUALITY_IMAGES // 8)
+    with open(os.path.join(out, "scores.json")) as f:
+        payload = json.load(f)
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    steps = payload["steps"]
+    if steps != QUALITY_STEPS or len(results) != QUALITY_IMAGES:
+        fail(f"quality: {steps} steps and {len(results)} captions, expected {QUALITY_STEPS} and {QUALITY_IMAGES}")
+    rows = [json.loads(line) for line in open(os.path.join(out, "summary", "metrics.jsonl"))]
+    losses = [(r["step"], round(r["total_loss"], 4)) for r in rows]
+    print(f"quality on {card}: {steps} --train_cnn steps at batch 8 over {QUALITY_IMAGES} images in "
+          f"{payload['train_seconds']}s of training ({tally['wall_s']:.2f}s process start to exit); device "
+          f"{payload['device']!r}, power limit {payload['power_limit']}; scores {payload['scores']}; loss at "
+          f"steps {losses[0]} .. {losses[-1]}; eval decode {tally['decode_s'][0]:.3f}s, B1 launches "
+          f"{tally['launches']} over {tally['steps']} decode steps; sample {results[0]}", flush=True)
+
+    sets = set_args(protocol_overrides(out, "basic", 8, 224, "vgg16"))
+    config, _ = build_config(["--phase=train", "--train_cnn"] + sets)
+    init = runtime.setup_train_state(config, device="cuda")
+    init_path = save_checkpoint(init, config, save_dir=os.path.join(out, "init"))
+    eval_config, _ = build_config(["--phase=eval", "--beam_size=3"] + sets)
+    eval_config = eval_config.replace(eval_result_file=os.path.join(out, "results_init.json"))
+    fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+    untrained = runtime.evaluate(eval_config, state=serving_state(init), device="cuda")
+    init_launches = fa.fused_attend.launches
+    del init
+    trained_b4, init_b4 = payload["scores"]["Bleu_4"], untrained["Bleu_4"]
+    print(f"quality untrained init on {card}: scores {untrained}; B1 launches {init_launches}", flush=True)
+    if not (trained_b4 >= QUALITY_BLEU4[0] and init_b4 <= QUALITY_BLEU4[1]):
+        fail(f"quality: BLEU-4 {trained_b4:.4f} trained (gate >= {QUALITY_BLEU4[0]}), {init_b4:.4f} untrained "
+             f"(gate <= {QUALITY_BLEU4[1]})")
+    if init_launches <= 0 or fa.fused_attend.masked_launches:
+        fail(f"quality: the untrained eval launched B1 {init_launches} times, B2 {fa.fused_attend.masked_launches}")
+
+    ckpt = os.path.join(out, "models", f"{steps}.npz")
+    flat = load_flat(ckpt)
+    exported, trimmed = os.path.join(out, "exported.npy"), os.path.join(out, "trimmed.npz")
+    if export_reference.main([ckpt, exported]) != 0 or trim_model.main([ckpt, trimmed]) != 0:
+        fail("quality: export_reference or trim_model did not exit 0")
+    back = params_to_flat(runtime.setup_state(config, model_file=exported, device="cuda").params)
+    params = {k: v for k, v in flat.items() if k.startswith("params/")}
+    if sorted(back) != sorted(params) or not all(np.array_equal(back[k], params[k]) for k in params):
+        fail("quality: the exported npy does not import back to the checkpoint's parameters bitwise")
+    slim = load_flat(trimmed)
+    kept = {k: v for k, v in flat.items() if not k.startswith("optimizer/")}
+    if sorted(slim) != sorted(kept) or not all(np.array_equal(slim[k], kept[k]) for k in kept):
+        fail("quality: the trimmed npz is not the checkpoint without its optimizer slots")
+    print(f"quality export and trim on {card}: {len(params)} parameters through the reference's npy and back "
+          f"bitwise; trimmed {len(flat)} -> {len(slim)} entries "
+          f"({os.path.getsize(ckpt) / 2**20:.1f} -> {os.path.getsize(trimmed) / 2**20:.1f} MiB)", flush=True)
+    return {"out": out, "ckpt": ckpt, "init": init_path, "launches": tally["launches"] + init_launches}
+
+
+REPLAY_BURST = 6   # concurrent requests a burst, two bursts a serve mode
+
+
+def replay_phase(torch, np, quality: dict, card: str):
+    """The quality phase's trained checkpoint served in batch and then in
+    continuous mode with the quality plane on (every request an outlier,
+    the recorder's rate limit off, one exemplar directory), two bursts of
+    ``REPLAY_BURST`` concurrent corpus JPEGs each; then ``python -m
+    sat_tpu_torch.tools.replay_exemplar --all`` in a fresh process must
+    exit 0 with every row replayed bitwise in its captured geometry, and
+    ``--diff`` against the untrained init (in-process) reports each
+    row's divergence.  Returns the (B1, B2) launches of the serving and
+    the replays."""
+    import contextlib
+    import io
+
+    from sat_tpu_torch import telemetry
+    from sat_tpu_torch.config import Config
+    from sat_tpu_torch.ops import fused_attend as fa
+    from sat_tpu_torch.telemetry.exemplar import read_exemplars
+    from sat_tpu_torch.tools import replay_exemplar
+
+    out = quality["out"]
+    exdir = os.path.join(out, "exemplars")
+    base = Config.load(os.path.join(out, "models", "config.json")).replace(
+        phase="serve", serve_quality="on", serve_quality_margin_min=1e9, serve_quality_exemplar_dir=exdir,
+        telemetry_dir=os.path.join(out, "serve_tel"), heartbeat_interval=0.0)
+    bodies = []
+    for path in sorted(glob.glob(os.path.join(out, "images", "*.jpg")))[:2 * REPLAY_BURST]:
+        with open(path, "rb") as f:
+            bodies.append(f.read())
+    served = {}
+    fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+    telemetry.enable()
+    try:
+        for mode in ("batch", "continuous"):
+            config = base.replace(serve_mode=mode)
+            server = planes_server(config, planes_engine(config))
+            server.exemplars.min_interval_s = 0.0
+            try:
+                for i in range(2):
+                    _, replies = post_all(server.port, bodies[i * REPLAY_BURST:(i + 1) * REPLAY_BURST])
+                    if any(r[0] != 200 for r in replies):
+                        fail(f"replay: {mode} burst replies {[r[0] for r in replies]}")
+            finally:
+                server.shutdown()
+            served[mode] = server.exemplars.stats()["recorded"]
+            del server
+    finally:
+        telemetry.disable()
+    serve_b1, serve_b2 = fa.fused_attend.launches, fa.fused_attend.masked_launches
+    rows, _ = read_exemplars(exdir)
+    shapes = [(r.get("geometry") or {}).get("mode") for r in rows]
+    wide = [r for r in rows if (r.get("geometry") or {}).get("encode_width", 1) > 1]
+    print(f"replay capture on {card}: {len(rows)} exemplars ({shapes.count('batch')} batch, "
+          f"{shapes.count('continuous')} continuous; {len(wide)} captured wider than 1: "
+          f"{sorted({(r['geometry']['mode'], r['geometry']['encode_width']) for r in wide})}); serving launched "
+          f"B1 {serve_b1}, B2 {serve_b2}", flush=True)
+    if shapes.count("batch") < 2 or shapes.count("continuous") < 2 or not wide:
+        fail(f"replay: exemplars {shapes}, none wider than 1: {not wide}")
+
+    tally, stdout = run_cli(["sat_tpu_torch.tools.replay_exemplar", "--dir", exdir, "--all"], "replay",
+                            harness=TOOL_HARNESS)
+    verdicts = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    matched = [v for v in verdicts if v["verdict"] == "BITWISE MATCH"]
+    if len(verdicts) != len(rows) or len(matched) != len(rows):
+        fail(f"replay: {len(matched)}/{len(rows)} exemplars replayed bitwise:\n{stdout[-3000:]}")
+    if tally["launches"] <= 0 or tally["masked"] <= 0:
+        fail(f"replay: the replay launched B1 {tally['launches']}, B2 {tally['masked']} times")
+    digests = sum(v["alphas_digest_captured"] == v["alphas_digest_replayed"] for v in verdicts)
+    print(f"replay on {card}: --all exit 0, {len(matched)}/{len(rows)} captions bitwise in their captured "
+          f"geometry ({tally['wall_s']:.2f}s process start to exit), alphas digests equal {digests}/{len(rows)}; "
+          f"B1 launches {tally['launches']}, B2 {tally['masked']}", flush=True)
+
+    # the same rows alone at bucket 1 (where the JAX script replays every
+    # row): what a replay that ignored the capture's geometry would see
+    from sat_tpu_torch.telemetry.exemplar import load_image
+
+    fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+    with contextlib.redirect_stderr(io.StringIO()):
+        alone = replay_exemplar.Replayer(Config.from_dict(json.load(open(os.path.join(exdir, "meta.json")))["config"]),
+                                         None, "cuda")
+    lone = [alone.caption(load_image(exdir, r)) for r in wide]
+    print(f"replay at bucket 1 on {card}: of the {len(wide)} exemplars captured wider than 1, "
+          f"{sum(a['caption'] != r['caption'] for a, r in zip(lone, wide))} captions and "
+          f"{sum(a['alphas_digest'] != r['alphas_digest'] for a, r in zip(lone, wide))} alphas digests differ "
+          "from the capture's", flush=True)
+    del alone
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = replay_exemplar.main(["--dir", exdir, "--all", "--diff", quality["init"], quality["ckpt"]])
+    diffs = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    if rc != 0 or len(diffs) != len(rows):
+        fail(f"replay --diff: exit {rc}, {len(diffs)} rows of {len(rows)}")
+    div = [d["divergence"] for d in diffs]
+    print(f"replay --diff untrained init vs trained on {card}: divergence mean {sum(div) / len(div):.4f}, min "
+          f"{min(div):.4f}, max {max(div):.4f} over {len(div)} exemplars; sample {diffs[0]}", flush=True)
+    return (serve_b1 + tally["launches"] + fa.fused_attend.launches,
+            serve_b2 + tally["masked"] + fa.fused_attend.masked_launches)
+
+
 def memory_lead(torch, card: str) -> None:
     """What holds the card's memory at this point of the run: the
     allocator's statistics (``torch.cuda.memory_stats``) and the live
@@ -4590,6 +4765,10 @@ def phases(torch, np, fa, card: str):
         served(np, config)
         return serve_planes_phase(torch, np, fa, config, card, tmp)
 
+    def quality(tmp):
+        got["quality"] = quality_phase(torch, np, tmp, card)
+        return got["quality"]["launches"]
+
     return [
         ("kernel", (), lambda tmp: kernel_phase(torch, fa)),
         ("masked", (), lambda tmp: masked_phase(torch, fa)),
@@ -4608,7 +4787,7 @@ def phases(torch, np, fa, card: str):
         ("route batch", (), route("batch")),
         ("route continuous", (), route("continuous")),
         ("train reference", (), lambda tmp: train_reference_phase(torch, np, fa)),
-        ("train", ("eval steady", "test"),
+        ("train", ("eval steady",),
          lambda tmp: train_phase(np, train_config(os.path.join(tmp, "steady"), tmp), card)),
         ("supervise", (), lambda tmp: supervise_phase(np, tmp, card)),
         ("train steady", ("train",), train_steady),
@@ -4622,6 +4801,8 @@ def phases(torch, np, fa, card: str):
         ("vocab parallel", ("mesh train",), lambda tmp: vocab_parallel_phase(np, tmp, card, got)),
         ("context parallel", ("mesh train",), lambda tmp: context_parallel_phase(np, tmp, card, got)),
         ("elastic", ("mesh train",), lambda tmp: elastic_phase(np, tmp, card, got)),
+        ("quality", (), quality),
+        ("replay", ("quality",), lambda tmp: replay_phase(torch, np, got["quality"], card)),
     ]
 
 
@@ -4696,12 +4877,13 @@ def main() -> int:
     planes_b1, planes_b2 = got["serve planes"]
     route_b1 = got["route batch"][0] + got["route continuous"][0]
     route_b2 = got["route batch"][1] + got["route continuous"][1]
-    train_test_launches, eval_loss_launches = got["train"], got["train steady"]
+    eval_loss_launches = got["train steady"]
     r50_launches, r50_masked, r50_bulk = got["resnet50 serve and bulk"]
     r50_planes, r50_eval, import_launches = (got["resnet50 serve planes"], got["resnet50 eval and train"],
                                              got["import"])
     mesh_ranks_b1 = got["mesh train"][0] + got["vocab parallel"]
     mesh_b1 = mesh_ranks_b1 + got["mesh train"][1]
+    quality_b1, (replay_b1, replay_b2) = got["quality"], got["replay"]
 
     for B, N, what in ((60, 196, "eval: batch 20 x beam 3"), (20, 196, "eval-loss step: batch 20"),
                        (96, 49, "ResNet50 bucket 32 x beam 3"), (60, 49, "ResNet50 eval: batch 20 x beam 3")):
@@ -4709,19 +4891,20 @@ def main() -> int:
         print(f"kernel fused_attend bf16 B={B} N={N} D={row['D']} ({what}) on {card}: {row['ms'] * 1e3:.1f} us, "
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
-    vgg_b1 = (launches + ops_launches + eval_launches + test_launches + train_test_launches + eval_loss_launches
-              + planes_b1 + route_b1 + mesh_b1)
+    vgg_b1 = (launches + ops_launches + eval_launches + test_launches + eval_loss_launches
+              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
-          f"{eval_launches}, test {test_launches}, test after training {train_test_launches}, eval-loss "
+          f"{eval_launches}, test {test_launches}, eval-loss "
           f"step {eval_loss_launches}, serve planes {planes_b1}, route replicas {route_b1}, mesh evals in every "
           f"rank of the data- and vocab-parallel launches {mesh_ranks_b1}, their one-process reference "
-          f"{mesh_b1 - mesh_ranks_b1}; ResNet50 batch "
+          f"{mesh_b1 - mesh_ranks_b1}, quality evals {quality_b1}, replay serving and tool {replay_b1}; "
+          f"ResNet50 batch "
           f"serve {r50_launches}, eval "
           f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
           f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}, route replicas "
-          f"{route_b2}; ResNet50 continuous "
+          f"{route_b2}, replay serving and tool {replay_b2}; ResNet50 continuous "
           f"serve {r50_masked}, bulk {r50_bulk}, serve planes {r50_planes}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 196, "bfloat16"))
     r50_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 49, "bfloat16"))
@@ -4744,6 +4927,7 @@ def main() -> int:
         "launches_resnet50": r50_b1,
         "launches_route_replicas": route_b1,
         "launches_mesh_ranks": mesh_ranks_b1,
+        "launches_quality_and_replay": quality_b1 + replay_b1,
         "resnet50": {"shape": "B=96 N=49 da=512 D=2048 bfloat16", "ms": r50_row["ms"],
                      "plain_ms": r50_row["plain_ms"], "bound_ms": r50_row["bound_ms"],
                      "bound_by": r50_row["bound_by"]},
@@ -4753,7 +4937,7 @@ def main() -> int:
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
         "launches": (masked_launches + ops_masked + bulk_launches + planes_b2 + route_b2 + r50_masked + r50_bulk
-                     + r50_planes),
+                     + r50_planes + replay_b2),
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],
@@ -4764,6 +4948,7 @@ def main() -> int:
         "shape": "B=48 N=196 da=D=512 bfloat16, 48 rows live (16 slots x beam 3)",
         "launches_resnet50": r50_masked + r50_bulk + r50_planes,
         "launches_route_replicas": route_b2,
+        "launches_replay": replay_b2,
         "resnet50": {"shape": "B=48 N=49 da=512 D=2048 bfloat16, 48 rows live", "ms": r50_masked_row["ms"],
                      "plain_ms": r50_masked_row["plain_ms"], "bound_ms": r50_masked_row["bound_ms"],
                      "bound_by": r50_masked_row["bound_by"]},

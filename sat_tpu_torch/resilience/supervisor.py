@@ -14,8 +14,9 @@ runs the real work in a child process:
   with the jittered exponential backoff of ``resilience.retry``;
 * restarted children get ``--load`` appended (when absent) so they
   resume from the ``LAST_GOOD`` lineage pointer, and
-  ``SAT_SUPERVISOR_RESTARTS`` in their environment (the train heartbeat
-  that gauges it as ``supervisor/restarts`` is not ported yet);
+  ``SAT_SUPERVISOR_RESTARTS`` in their environment, which the child's
+  ``runtime.train`` gauges as ``supervisor/restarts`` (its heartbeat
+  carries it);
 * ``SAT_FI_*`` fault-injection variables are disarmed for restarted
   children: an injected deterministic fault would otherwise re-fire at
   the same step on every incarnation and live-lock the supervisor;

@@ -124,6 +124,11 @@ class Request:
     # a pre-encoded [N, D] grid (the tier handoff): dispatch skips the
     # encode and the cache
     context: Optional[np.ndarray] = None
+    # where its image was encoded, for an exemplar's replay: the serve
+    # mode, the encode's width and this row's index in it (and its pool
+    # slot in continuous mode); None when the row came from the encode
+    # cache or a handoff grid
+    geometry: Optional[Dict[str, Any]] = None
 
     def mark(self, phase: str, t0_ns: int, dur_ns: int) -> None:
         if self.trace is not None:
@@ -325,7 +330,7 @@ class _BatcherBase:
                         signals=sig,
                         image_bytes=r.raw,
                         alphas=None if alphas is None else alphas[i],
-                        extra={"slot": r.slot, "bucket": r.bucket},
+                        extra={"slot": r.slot, "bucket": r.bucket, "geometry": r.geometry},
                     )
         except Exception:
             self._tel.count("serve/quality_errors")
@@ -534,8 +539,12 @@ class MicroBatcher(_BatcherBase):
                 if r.cost is not None:
                     r.cost.add_decode(share)
                     r.cost.set_occupancy(t2 - t0)
-        for r, result in zip(live, results):
+        encoded = live[0].context is None and (
+            self.engine.encode_cache is None or any(r.key is None for r in live))
+        for i, (r, result) in enumerate(zip(live, results)):
             r.bucket = bucket
+            if encoded:
+                r.geometry = {"mode": "batch", "encode_width": bucket, "encode_row": i}
             r.mark("dispatch", t0, t1 - t0)
             r.mark("drain", t1, t2 - t1)
             r.mark("detok", t2, t3 - t2)
@@ -684,8 +693,11 @@ class ContinuousBatcher(_BatcherBase):
         n = pool.admit(items)
         t1 = time.perf_counter_ns()
         self._tel.count("serve/admitted", n)
-        for _, r in items[:n]:
+        for (_, r), placed in zip(items[:n], pool.admitted):
             r.bucket = pool.width  # the page width is this path's "bucket"
+            if placed is not None:
+                lane, row, slot = placed
+                r.geometry = {"mode": "continuous", "encode_width": lane, "encode_row": row, "pool_slot": slot}
             r.t_admit_ns = t1
             r.mark("admit", t0, t1 - t0)
             # submit → seeded: the continuous path's admission latency

@@ -44,7 +44,7 @@ from __future__ import annotations
 import sys
 import time
 import zlib
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +103,10 @@ class PagedSlotPool:
         self._generation = 0
         self.warm_seconds = 0.0
         self._return_alphas = config.serve_quality == "on"
+        # the last ``admit``'s placements, one an admitted item in order:
+        # (lane width, row in the lane, slot) for an image encoded in its
+        # lane, None for a cache hit or miss and a handoff grid
+        self.admitted: List[Optional[Tuple[int, int, int]]] = []
 
     # -- startup -----------------------------------------------------------
 
@@ -214,6 +218,7 @@ class PagedSlotPool:
         admitted = 0
         free = sorted(self._free)
         cache = self.engine.encode_cache
+        self.admitted = []
 
         def is_ctx(item) -> bool:
             return getattr(item[1], "context", None) is not None
@@ -233,6 +238,7 @@ class PagedSlotPool:
                 admitted += 1
                 s = free.pop(0)
                 rows.append(payload.context if kind else image)
+                self.admitted.append(None if kind or cache is not None else (lane, j, s))
                 slot_src[s] = j
                 admit_mask[s] = True
                 self._free.discard(s)
@@ -251,6 +257,29 @@ class PagedSlotPool:
             )
         self._tel.gauge(self._occ_gauge, self.occupancy())
         return admitted
+
+    @torch.inference_mode()
+    def admit_at(self, image: np.ndarray, payload: Any, lane: int, row: int, slot: int) -> None:
+        """Seed one image into ``slot`` from row ``row`` of an encode lane
+        ``lane`` wide, zeros in the lane's other rows: a placement that
+        ``admitted`` recorded, so an exemplar's replay encodes and seeds its
+        image as the capture did (the bf16 encode depends on its width)."""
+        if slot not in self._free or not 0 <= row < lane:
+            raise ValueError(f"slot pool: cannot place row {row} of a {lane}-wide lane in slot {slot}")
+        slot_src = np.zeros((self.slots,), np.int64)
+        admit_mask = np.zeros((self.slots,), np.bool_)
+        slot_src[slot], admit_mask[slot] = row, True
+        images = self._stack(lane, [])
+        images[row] = image
+        contexts = self._encode_lane(images, [payload])
+        self._free.discard(slot)
+        self._payload[slot] = payload
+        self._mask[slot] = True
+        self._carry = init_slots(
+            self._decoder_params(), self.config, self._carry, contexts,
+            self._on_device(slot_src), self._on_device(admit_mask), beam_size=self.beam_size,
+        )
+        self._tel.gauge(self._occ_gauge, self.occupancy())
 
     def _stack(self, lane: int, rows: List[np.ndarray]) -> np.ndarray:
         size = self.config.image_size

@@ -1,0 +1,369 @@
+"""End-to-end quality evidence: train → checkpoint → beam-search eval →
+BLEU/METEOR/ROUGE/CIDEr, on a self-contained procedural corpus.
+
+The port of ``scripts/quality_run.py``.  COCO cannot be fetched here, so
+the run drives the whole pipeline (COCO-format ingestion, vocabulary
+build, the prefetch-fed training loop, the checkpoint, the batched beam
+search, PTB tokenization, the four scorers) over the corpus of
+:mod:`.corpus`, where each image carries a distinct learnable caption.  A
+model that learns drives BLEU-4 from ~0 to near saturation; any break in
+the chain keeps it near 0.
+
+Writes under ``--out`` only: the corpus, ``models/`` (the final
+checkpoint), ``summary/metrics.jsonl``, ``results.json`` (one caption an
+image), ``scores.json`` and ``summary.md`` (the protocol, the scores and
+the loss curve as a report).  It never writes the repository's
+RESULTS.md, so ``--no-results-md`` is accepted and changes nothing.
+
+Usage:  python -m sat_tpu_torch.tools.quality_run [--steps N] [--out DIR]
+        [--cpu]   (the card unless --cpu or SAT_TORCH_DEVICE=cpu)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from typing import List, Optional
+
+from .corpus import make_corpus, make_rich_corpus, read_loss_curve
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m sat_tpu_torch.tools.quality_run")
+    ap.add_argument("--steps", type=int, default=600, help="target train steps")
+    ap.add_argument("--out", default="runs/quality")
+    ap.add_argument(
+        "--corpus", default="basic", choices=["basic", "rich"],
+        help="rich = few-hundred images, 1000+ word vocab, caption lengths "
+        "7-20 plus over-cap captions the length filter must drop",
+    )
+    ap.add_argument("--num-images", type=int, default=None,
+                    help="default 48 (basic) / 336 (rich)")
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument(
+        "--frozen-cnn", action="store_true",
+        help="reference-published configuration (RNN-only training); "
+        "default trains the CNN jointly",
+    )
+    ap.add_argument(
+        "--beam-compare", action="store_true",
+        help="also decode greedily (beam=1) and record the beam-3 deltas",
+    )
+    ap.add_argument(
+        "--corpus-only", action="store_true",
+        help="generate the fixture corpus under --out and exit",
+    )
+    ap.add_argument(
+        "--image-size", type=int, default=224,
+        help="input edge; 224 = flagship, smaller for CPU runs",
+    )
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: the card)")
+    ap.add_argument(
+        "--cnn", default="vgg16", choices=["vgg16", "resnet50"],
+        help="encoder family (resnet50 exercises the BN/bottleneck path)",
+    )
+    ap.add_argument(
+        "--no-results-md", action="store_true",
+        help="accepted for the JAX script's command lines; this tool never "
+        "writes RESULTS.md",
+    )
+    ap.add_argument(
+        "--extra-set", action="append", default=[], metavar="KEY=VALUE",
+        help="extra Config overrides appended after the protocol defaults "
+        "(e.g. fc_drop_rate=0.0 for a saturation run)",
+    )
+    return ap
+
+
+def protocol_overrides(root: str, corpus: str, batch_size: int, image_size: int, cnn: str,
+                       num_epochs: Optional[int] = None) -> List[str]:
+    """The protocol's ``--set`` overrides over the flagship defaults, as
+    ``scripts/quality_run.py`` writes them: corpus-keyed cache and
+    vocabulary names (a rerun with another ``--corpus`` into the same
+    ``--out`` must not train on the previous corpus's caches), mild
+    dropout and a hotter Adam so a few hundred steps saturate, one save at
+    the end, a log every 10 steps."""
+    img_dir, caption_file = os.path.join(root, "images"), os.path.join(root, "captions.json")
+    overrides = [
+        f"train_image_dir={img_dir}",
+        f"train_caption_file={caption_file}",
+        f"eval_image_dir={img_dir}",
+        f"eval_caption_file={caption_file}",
+        f"vocabulary_file={root}/vocabulary_{corpus}.csv",
+        f"temp_annotation_file={root}/anns_{corpus}.csv",
+        f"temp_data_file={root}/data_{corpus}.npy",
+        f"save_dir={root}/models",
+        f"summary_dir={root}/summary",
+        f"eval_result_dir={root}/results",
+        f"eval_result_file={root}/results.json",
+        "max_train_ann_num=none",
+        "max_eval_ann_num=none",
+        f"batch_size={batch_size}",
+    ]
+    if num_epochs is not None:
+        overrides.append(f"num_epochs={num_epochs}")
+    overrides += [
+        # rich corpus: the top-5000 cap of the reference's published config
+        "vocabulary_size=5000" if corpus == "rich" else "vocabulary_size=200",
+        "fc_drop_rate=0.1",
+        "lstm_drop_rate=0.1",
+        "initial_learning_rate=0.0003",
+        "save_period=0",
+        "log_every=10",
+        f"image_size={image_size}",
+        f"cnn={cnn}",
+    ]
+    return overrides
+
+
+def set_args(overrides: List[str]) -> List[str]:
+    return [x for o in overrides for x in ("--set", o)]
+
+
+def card_facts(dev) -> dict:
+    """``device`` (the card's name, or "cpu") and ``power_limit`` (the
+    card's, as ``nvidia-smi --query-gpu=name,power.limit`` prints it;
+    None on the CPU or where nvidia-smi does not answer)."""
+    import torch
+
+    if dev.type != "cuda":
+        return {"device": "cpu", "power_limit": None}
+    limit = None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+        rows = out.stdout.strip().splitlines() if out.returncode == 0 else []
+        index = dev.index or 0
+        if index < len(rows):
+            limit = rows[index].rsplit(",", 1)[-1].strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return {"device": torch.cuda.get_device_name(dev), "power_limit": limit}
+
+
+def serving_state(state):
+    """A train state's parameters as the decoding entry points take them."""
+    from ..train.checkpoint import ServingState
+
+    return ServingState(params=state.params, step=int(state.step), batch_stats=state.batch_stats)
+
+
+def median_step_ms(metrics_path: str) -> Optional[float]:
+    """The median host time a step over the last run's logged intervals
+    (``mono_ns`` between consecutive rows over their step difference),
+    the first interval (first-call costs) left out; None with fewer than
+    three rows."""
+    rows = []
+    with open(metrics_path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "mono_ns" in rec:
+                if rows and rec["step"] <= rows[-1]["step"]:
+                    rows = []
+                rows.append(rec)
+    per_step = [(b["mono_ns"] - a["mono_ns"]) / 1e6 / (b["step"] - a["step"]) for a, b in zip(rows[1:], rows[2:])]
+    return statistics.median(per_step) if per_step else None
+
+
+def count_vocab_words(path: str) -> Optional[int]:
+    try:
+        with open(path) as f:
+            return sum(1 for _ in f) - 1      # header row
+    except OSError:
+        return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    t0 = time.time()
+    root = os.path.abspath(args.out)
+    dev = None
+    if not args.corpus_only:
+        from ..device import resolve_device
+
+        dev = resolve_device("cpu" if args.cpu else None)
+    os.makedirs(root, exist_ok=True)
+    if args.num_images is None:
+        args.num_images = 336 if args.corpus == "rich" else 48
+    cap_lengths = None
+    if args.corpus == "rich":
+        img_dir, caption_file, cap_lengths = make_rich_corpus(root, num_images=args.num_images)
+    else:
+        img_dir, caption_file = make_corpus(root, num_images=args.num_images)
+    print(f"[quality +{time.time()-t0:5.1f}s] corpus: {args.num_images} images at {img_dir}")
+    if args.corpus_only:
+        return 0
+
+    from .. import runtime
+    from ..cli import build_config
+
+    steps_per_epoch = -(-2 * args.num_images // args.batch_size)  # 2 captions/image
+    num_epochs = -(-args.steps // steps_per_epoch)
+    overrides = protocol_overrides(root, args.corpus, args.batch_size, args.image_size, args.cnn, num_epochs)
+    overrides += args.extra_set    # caller overrides win (later --set)
+    sets = set_args(overrides)
+
+    train_flags = [] if args.frozen_cnn else ["--train_cnn"]
+    config, _ = build_config(["--phase=train"] + train_flags + sets)
+
+    facts = card_facts(dev)
+    print(f"[quality +{time.time()-t0:5.1f}s] device: {facts['device']} ({dev}), power limit "
+          f"{facts['power_limit']}")
+    print(f"[quality +{time.time()-t0:5.1f}s] training {num_epochs} epochs x {steps_per_epoch} steps")
+    state = runtime.train(config, device=dev)
+    train_s = time.time() - t0
+    print(f"[quality +{train_s:5.1f}s] training done at step {int(state.step)}")
+
+    served = serving_state(state)
+    eval_config, _ = build_config(["--phase=eval", "--beam_size=3"] + sets)
+    scores = runtime.evaluate(eval_config, state=served, device=dev)
+
+    greedy_scores = None
+    if args.beam_compare:
+        greedy_config, _ = build_config(["--phase=eval", "--beam_size=1"] + sets)
+        greedy_config = greedy_config.replace(eval_result_file=f"{root}/results_greedy.json")
+        greedy_scores = runtime.evaluate(greedy_config, state=served, device=dev)
+    total_s = time.time() - t0
+
+    sampled = read_loss_curve(os.path.join(root, "summary", "metrics.jsonl"))
+    step_ms = median_step_ms(os.path.join(root, "summary", "metrics.jsonl"))
+    vocab_words = count_vocab_words(f"{root}/vocabulary_{args.corpus}.csv")
+
+    payload = {
+        "scores": scores,
+        "steps": int(state.step),
+        "device": facts["device"],
+        "power_limit": facts["power_limit"],
+        "train_seconds": round(train_s, 1),
+        "total_seconds": round(total_s, 1),
+        "num_images": args.num_images,
+        "corpus": args.corpus,
+        "train_cnn": not args.frozen_cnn,
+        "vocab_words": vocab_words,
+        "protocol": "overfit-fixture",
+    }
+    if greedy_scores is not None:
+        payload["greedy_scores"] = greedy_scores
+    if cap_lengths is not None:
+        hist = {}
+        for n in cap_lengths:
+            hist[n] = hist.get(n, 0) + 1
+        payload["caption_token_length_histogram"] = {str(k): hist[k] for k in sorted(hist)}
+    with open(os.path.join(root, "scores.json"), "w") as f:
+        json.dump(payload, f, indent=2)
+
+    text = summary_text(args, argv if argv is not None else sys.argv[1:], facts, dev, scores, greedy_scores,
+                        sampled, cap_lengths, vocab_words, num_epochs, int(state.step), train_s, total_s, step_ms)
+    with open(os.path.join(root, "summary.md"), "w") as f:
+        f.write(text)
+    print(f"[quality +{time.time()-t0:5.1f}s] scores.json and summary.md written under {root}; median "
+          f"step {step_ms if step_ms is None else round(step_ms, 2)} ms over the logged intervals")
+    for k, v in scores.items():
+        print(f"  {k}: {v:.4f}")
+    return 0
+
+
+def summary_text(args, argv, facts, dev, scores, greedy_scores, sampled, cap_lengths, vocab_words,
+                 num_epochs: int, steps: int, train_s: float, total_s: float,
+                 step_ms: Optional[float] = None) -> str:
+    """The report, in the layout of the JAX script's RESULTS.md body."""
+    where = f"**{facts['device']}**" + (f" (power limit {facts['power_limit']})" if facts["power_limit"] else "")
+    lines = [
+        "# Quality evidence (fixture-scale end-to-end run)",
+        "",
+        f"Produced by `python -m sat_tpu_torch.tools.quality_run {' '.join(argv)}`".rstrip() + " "
+        f"on {where} ({dev}); total wall-clock {total_s:.0f}s (train {train_s:.0f}s for {steps} "
+        "steps including first-call costs, the rest is eval-side beam search + scoring)"
+        + (f"; median step {step_ms:.2f} ms over the logged intervals after the first." if step_ms else "."),
+        "",
+    ]
+    cnn_mode = (
+        "frozen randomly-initialized CNN, RNN-only training like the reference's published mode, "
+        "without its pretrained VGG16 weights"
+        if args.frozen_cnn else "`--train_cnn`"
+    )
+    corpus_desc = (
+        f"self-contained {args.num_images}-image corpus with a **{vocab_words}-word built "
+        "vocabulary**, caption lengths spanning 7-20 tokens (plus over-cap captions the length "
+        "filter drops)"
+        if args.corpus == "rich"
+        else f"self-contained {args.num_images}-image corpus"
+    )
+    lines += [
+        "**Protocol.** COCO val2014 (the reference's BLEU-4 = 29.5 benchmark) cannot be fetched "
+        "here. Instead this run drives the complete pipeline — COCO-format ingestion, vocabulary "
+        f"build, prefetch-fed training of the full {args.cnn}+attention-LSTM model ({cnn_mode}), "
+        "checkpointing, batched beam search (beam=3), PTB tokenization, and all four scorers — "
+        f"on a {corpus_desc} where every image carries a distinct learnable caption (content "
+        "words correlated with image pixels). A model that learns saturates BLEU; any break in "
+        "the chain (preprocessing, attention, decoding, tokenization, scoring) keeps it near 0.",
+        "",
+        "## Scores (beam_size=3, eval over all corpus images)",
+        "",
+        "| Metric | Score |" if greedy_scores is None else "| Metric | beam=3 | greedy (beam=1) | Δ |",
+        "|---|---|" if greedy_scores is None else "|---|---|---|---|",
+    ]
+    for k, v in scores.items():
+        if greedy_scores is None:
+            lines.append(f"| {k} | {v:.4f} |")
+        else:
+            g = greedy_scores.get(k, float("nan"))
+            lines.append(f"| {k} | {v:.4f} | {g:.4f} | {v - g:+.4f} |")
+    lines += [
+        "",
+        f"Raw artifacts: `{args.out}/scores.json`, `{args.out}/results.json` (per-image captions).",
+        "",
+    ]
+    if cap_lengths is not None:
+        bands = {"7 (short)": 0, "12 (medium)": 0, "19 (long)": 0, "20 (max)": 0, ">20 (filtered)": 0}
+        for n in cap_lengths:
+            if n > 20:
+                bands[">20 (filtered)"] += 1
+            elif n >= 20:
+                bands["20 (max)"] += 1
+            elif n >= 15:
+                bands["19 (long)"] += 1
+            elif n >= 10:
+                bands["12 (medium)"] += 1
+            else:
+                bands["7 (short)"] += 1
+        lines += [
+            "## Caption length distribution (tokens incl. terminator)",
+            "",
+            "| Band | Captions |",
+            "|---|---|",
+        ] + [f"| {k} | {v} |" for k, v in bands.items()] + [""]
+    lines += [
+        "## Training loss curve (total_loss from metrics.jsonl)",
+        "",
+        "| Step | Total loss |",
+        "|---|---|",
+    ]
+    for step, loss in sampled:
+        lines.append(f"| {step} | {loss:.3f} |")
+    vocab_note = "vocabulary_size=5000 (top-5000 cap)" if args.corpus == "rich" else "`vocabulary_size=200`"
+    cnn_note = "frozen randomly-initialized CNN (RNN-only training)" if args.frozen_cnn else "`--train_cnn`"
+    lines += [
+        "",
+        "## Config deltas vs flagship defaults",
+        "",
+        f"{cnn_note}, `batch_size={args.batch_size}`, {vocab_note}, `fc_drop_rate=0.1`, "
+        "`lstm_drop_rate=0.1`, `initial_learning_rate=3e-4` (overfit protocol), "
+        f"`num_epochs={num_epochs}`, `image_size={args.image_size}`"
+        + (f", then `{'`, `'.join(args.extra_set)}`" if args.extra_set else "")
+        + f". Everything else — {args.cnn} encoder, 512-unit attention LSTM, Adam, global-norm "
+        "clip 5.0, doubly-stochastic attention penalty — is the reference-published configuration.",
+        "",
+    ]
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -229,15 +229,39 @@ def test_metrics_jsonl_carries_the_diag_columns(runs):
     assert 0.0 < got[-1]["diag/attn_entropy_frac"] <= 1.0
 
 
+def _die_when_slo_logged(monkeypatch, pkg, tdir):
+    """Hold the injected preemption until the SLO engine's thread has
+    logged the burn to ``slo.jsonl``.  The bundle copies the files that
+    exist when the exit fires, and this one is the only file a timer
+    writes: without the wait, whether it is in the bundle depends on how
+    loaded the machine is."""
+    if pkg == "jax":
+        from sat_tpu.resilience.faultinject import FaultPlan
+    else:
+        from sat_tpu_torch.resilience.faultinject import FaultPlan
+    kill = FaultPlan.maybe_kill
+
+    def maybe_kill(self, step):
+        if self.die_at_step is not None and step >= self.die_at_step:
+            deadline = time.monotonic() + 60.0
+            while not os.path.exists(os.path.join(tdir, "slo.jsonl")) and time.monotonic() < deadline:
+                time.sleep(0.02)
+        return kill(self, step)
+
+    monkeypatch.setattr(FaultPlan, "maybe_kill", maybe_kill)
+
+
 def _die_run(pkg, coco_fixture, root, monkeypatch):
     """train through the package's CLI with --blackbox, preempted at step
-    2 by ``SAT_FI_DIE_AT_STEP``; returns (exit code, telemetry dir)."""
+    2 by ``SAT_FI_DIE_AT_STEP`` once the burning train SLO is logged;
+    returns (exit code, telemetry dir)."""
     jc, tc = configs(**_settings(coco_fixture, root, pkg))
     config = _tdir(jc if pkg == "jax" else tc, "die")
     path = os.path.join(root, f"{pkg}.json")
     os.makedirs(root, exist_ok=True)
     config.save(path)
     monkeypatch.setenv("SAT_FI_DIE_AT_STEP", "2")
+    _die_when_slo_logged(monkeypatch, pkg, config.telemetry_dir)
     try:
         rc = (jax_cli if pkg == "jax" else cli).main(["--config", path, "--phase", "train", "--blackbox"])
     finally:

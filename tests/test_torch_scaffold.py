@@ -26,12 +26,17 @@ def _port_sources():
     return sorted(files)
 
 
+# the evidence tools, one a script of scripts/ (and the corpus they share)
+TOOLS = ("corpus", "quality_run", "continue_quality_run", "import_finetune_run", "export_reference",
+         "trim_model", "replay_exemplar", "merge_traces", "check_slo")
+
+
 def test_import_loads_neither_jax_nor_sat_tpu():
     """The runtime (train, eval, test), the train step and optimizer, the
     scorers, the CLI, the bulk runner and the input pipeline's cache,
-    integrity, quarantine and fault hooks, then every submodule, import in
-    a fresh interpreter without loading jax, flax, optax or any sat_tpu
-    module."""
+    integrity, quarantine and fault hooks, every evidence tool, then every
+    submodule, import in a fresh interpreter without loading jax, flax,
+    optax or any sat_tpu module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sat_tpu_torch.runtime, sat_tpu_torch.evalcap, sat_tpu_torch.cli\n"
@@ -41,7 +46,10 @@ def test_import_loads_neither_jax_nor_sat_tpu():
         "import sat_tpu_torch.telemetry.heartbeat\n"
         "import sat_tpu_torch.telemetry.device, sat_tpu_torch.telemetry.compile_report\n"
         "from sat_tpu_torch.runtime import train, setup_train_state\n"
+        f"tools = {TOOLS!r}\n"
+        "for t in tools: importlib.import_module('sat_tpu_torch.tools.' + t)\n"
         "names = [m.name for m in pkgutil.walk_packages(sat_tpu_torch.__path__, 'sat_tpu_torch.')]\n"
+        "assert {'sat_tpu_torch.tools.' + t for t in tools} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sat_tpu'))\n"
         "print(len(names), bad)\n"

@@ -489,8 +489,15 @@ def test_sigterm_drains_through_the_cli(stack, tmp_path):
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     try:
-        beat = wait_for(lambda: (tdir / "heartbeat.json").exists()
-                        and json.loads((tdir / "heartbeat.json").read_text() or "{}"), timeout=120)
+        def ready_beat():
+            # the heartbeat starts before the server turns ready, and a
+            # request before that gets 503: wait for a beat that says ready
+            if not (tdir / "heartbeat.json").exists():
+                return None
+            beat = json.loads((tdir / "heartbeat.json").read_text() or "{}")
+            return beat if beat.get("serve", {}).get("ready") else None
+
+        beat = wait_for(ready_beat, timeout=120)
         assert beat and beat["port"], proc.stderr
         status, payload, _ = post(beat["port"], stack["jpegs"][2])
         assert status == 200, payload

@@ -51,9 +51,10 @@ Phases, each fatal on failure:
    and scores.  Last, one full-pool K=8 window under torch.profiler.
 8a. serve ops — the operations layer: the flagship checkpoint through
    ``python -m sat_tpu_torch.cli --phase serve`` in a fresh process, in
-   batch and then continuous mode, with the wedge watchdog (3 s), a 1 s
+   batch mode (continuous mode's wedge in a fresh process is the chaos
+   phase's ``serve_wedge_continuous``), with the wedge watchdog (3 s), a 1 s
    heartbeat, ``--trace_export``, ``--blackbox`` and an error-ratio SLO,
-   and ``SAT_FI_WEDGE_SERVE_BATCH`` wedging one batch (window): 200s
+   and ``SAT_FI_WEDGE_SERVE_BATCH`` wedging one batch: 200s
    with ``X-Request-Id`` echoed and minted, a fast 500 "wedged",
    ``/healthz`` 503 "degraded" then "ok" after the re-warm, the same
    words as before; a ``/profile`` capture while 32 requests flow
@@ -82,8 +83,8 @@ Phases, each fatal on failure:
    wall), ``compile_report-decode.json`` with both decode functions, a
    heartbeat naming the card with non-zero ``hbm_bytes_in_use``, a
    torch.profiler window a decode holding B1's events, no postmortem.
-10. test — ``--phase test`` over 7 JPEGs: results.csv with 7 rows and 7
-   captioned ``*_result.jpg``.
+10. test — ``--phase test`` over 7 JPEGs through ``cli.main`` in this
+   process: results.csv with 7 rows and 7 captioned ``*_result.jpg``.
 11. eval reference — the eval path at the small float32 size through
    ``runtime.evaluate`` (attention maps on) and ``decode_dataset`` over
    the fixture's first 12 images, on the card and on the CPU: the same captions and scores, prob and
@@ -105,8 +106,7 @@ Phases, each fatal on failure:
    the masked kernel launched and the unmasked not, the heartbeat's
    ``bulk/*`` gauges; a run killed by ``SAT_FI_DIE_AT_STEP`` at half the
    control's decode steps with ``--blackbox`` (a postmortem bundle),
-   relaunched: the output directory bitwise the control's.  Then one
-   shard decoded in-process under torch.profiler: the card's busy share.
+   relaunched: the output directory bitwise the control's.
 14a. serve planes — the flagship in-process, telemetry on: (1) the encode
    cache: one image's contexts at widths 1/4/16/32 compared first, then
    36 lone requests over 12 JPEGs in one seeded order, cache off and on,
@@ -174,19 +174,11 @@ Phases, each fatal on failure:
    training pairs/s, peak memory, FLOPs a step from the shapes against
    989 TFLOP/s bf16; 5 steps under torch.profiler (busy share, top
    kernels); the host time of forward, backward and update apart; one
-   eval-loss step at full width launching the kernel T times; the step
-   median with telemetry and ``diag_level=full`` on, then off again;
+   eval-loss step at full width launching the kernel T times;
    3 steps with diag full bitwise diag off and 6 with ``remat_decoder``
    bitwise remat off (dropout on), each in turns with its median and
    peak memory.  Before it, ``torch.cuda.memory_allocated()``, the
    allocator's ``memory_stats`` and the largest live CUDA tensors.
-16a. supervise — the flagship trained 6 steps through the CLI on a
-   40-JPEG fixture (a control), beside the same under ``--supervise``
-   with ``SAT_FI_WEDGE_AT_STEP=5`` and ``--watchdog 0.2`` (a 5 s step
-   deadline) and ``--blackbox``: the child aborted with exit 86, a stack
-   dump and a postmortem bundle, one restart from LAST_GOOD 3,
-   LAST_GOOD 6, the final 6.npz bitwise the control's.
-
 18. resnet50 reference — the small float32 ResNet50 (64 px: N=4,
    D=2048) on the card and on the CPU: contexts within 1e-4 of max|ctx|,
    the same words in batch mode (B1 launched on the card only) and in
@@ -208,8 +200,9 @@ Phases, each fatal on failure:
    9's fixture (B1 once a decode step); 20 ``--train_cnn`` steps of
    ``runtime.train`` at full width (median warm step, peak memory,
    checkpoints 10 and 20 with moved ``batch_stats/``, the loss falling),
-   then ``--phase train --train_cnn --load`` through the CLI from a copy
-   holding 10.npz alone: its 20.npz against the uninterrupted run's.
+   then ``--phase train --train_cnn --load`` through ``cli.main`` in this
+   process from a copy holding 10.npz alone: its 20.npz against the
+   uninterrupted run's.
    Between the two, 4 ``--train_cnn`` steps with ``remat_cnn`` against 4
    without, in turns, on one batch: losses, parameters and
    ``batch_stats/`` bitwise, median step and peak memory of each.
@@ -217,7 +210,8 @@ Phases, each fatal on failure:
    through ``--load_cnn --cnn_model_file`` into a 5-step train (265
    tensors, carried unchanged into 5.npz); that state exported with
    ``export_reference_checkpoint``; ``--phase test --model_file
-   exported.npy`` captions 7 JPEGs.
+   exported.npy`` captions 7 JPEGs; both through ``cli.main`` in this
+   process.
 22. encoder_quant — both flagship checkpoints served with
    ``encoder_quant`` off, bf16 and int8: contexts of a bucket-32 batch
    within the JAX package's gate (bf16 0.05, int8 0.10 of max|ctx|),
@@ -287,13 +281,30 @@ Phases, each fatal on failure:
    replayed alone at bucket 1 as well (how many captions and alphas
    digests then differ, reported), and ``--diff`` against the untrained
    init reports each exemplar's divergence.
+29. chaos — the port's chaos campaign (``python -m
+   sat_tpu_torch.tools.chaos_campaign --keep --workdir``) at flagship
+   widths (``--extra-set image_size=224 dim_embedding=512 ...``, float32)
+   on ``control``, ``wedge_watchdog``, ``poison_quarantine_replay``,
+   ``wedge_postmortem``, ``systemic_no_restart`` and
+   ``serve_wedge_continuous``, as three campaigns side by side: all pass.  From
+   the kept workdirs: the supervised wedge's stack dump, exit 86, one
+   restart from LAST_GOOD 3, LAST_GOOD 6, its 6.npz bitwise the
+   control's; the wedge's postmortem bundle; B2 launched on cuda:0 by the
+   serve wedge's child.
+30. vocab5000 — ``python -m sat_tpu_torch.tools.vocab5000_run --steps 8
+   --eval-anns 8 --image-size 224`` over its 1700-image rich corpus: the
+   vocabulary exactly 5000 words, 3 tensors sharded over ``model``, the
+   loss parity of one process and the (2,4) mesh of eight ranks sharing
+   the card under gloo under 5e-2 at every record, finite scores both
+   ways, B1 in the one-process eval and in every rank's; each arm's
+   median step.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card or without the package beside it.
 
-``python3 chip_smoke.py --only route_batch,supervise`` runs the build
+``python3 chip_smoke.py --only route_batch,chaos`` runs the build
 and the named phases (spaces in a name become ``_``; an unknown name
 fails with the list), with the phases they need before them; it prints
 each phase's launches and no kernels or ok line.
@@ -1454,16 +1465,16 @@ def layer_overhead(torch, np, engine, config, card: str, bodies):
 
 
 def serve_ops_phase(torch, np, engine, config, card: str, bodies):
-    """The operations layer: both modes through the CLI in fresh
-    processes, then a real device stall and the layer's overhead
-    in-process on the slice's engine.  Returns (B1 launches, B2
-    launches) of the two processes."""
+    """The operations layer: batch mode through the CLI in a fresh
+    process (continuous mode's wedge, re-warm and recovery in a fresh
+    process are the chaos phase's ``serve_wedge_continuous``), then a real
+    device stall and the layer's overhead in-process on the slice's
+    engine.  Returns (B1 launches, B2 launches) of the process."""
     tmp = os.path.dirname(config.save_dir)
     batch = serve_ops_process(np, config, card, "batch", tmp, bodies, wedge_at=3)
-    cont = serve_ops_process(np, config, card, "continuous", tmp, bodies, wedge_at=4)
     device_stall(torch, np, engine, config, card, bodies)
     layer_overhead(torch, np, engine, config, card, bodies)
-    return batch["launches"] + cont["launches"], batch["masked"] + cont["masked"]
+    return batch["launches"], batch["masked"]
 
 
 # -- eval and test phases ------------------------------------------------------
@@ -1581,6 +1592,51 @@ def run_cli(args, where: str, timeout: int = 600, rc: int = 0, env=None, harness
     tally["wall_s"] = wall
     tally["stderr"] = out.stderr[-4000:]
     return tally, out.stdout
+
+
+def cli_here(args, where: str):
+    """``sat_tpu_torch.cli.main(args)`` in this process, with CLI_HARNESS's
+    counts (a fresh process's start-up saved); returns (its tally, its
+    standard output).  Fails on an exit code other than 0."""
+    import contextlib
+    import io
+
+    from sat_tpu_torch import cli, runtime
+    from sat_tpu_torch.ops import beam_search as bs
+    from sat_tpu_torch.ops import fused_attend as fa
+
+    tally = {"batches": 0, "steps": 0, "decode_s": []}
+    sealed, decode_batch, decode_dataset = bs._sealed, runtime.decode_batch, runtime.decode_dataset
+
+    def counted_sealed(*a):  # called once per decode step of the search
+        tally["steps"] += 1
+        return sealed(*a)
+
+    def counted_batch(*a, **k):
+        tally["batches"] += 1
+        return decode_batch(*a, **k)
+
+    def timed_dataset(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return decode_dataset(*a, **k)
+        finally:
+            tally["decode_s"].append(time.perf_counter() - t0)
+
+    bs._sealed, runtime.decode_batch, runtime.decode_dataset = counted_sealed, counted_batch, timed_dataset
+    fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(args)
+    finally:
+        bs._sealed, runtime.decode_batch, runtime.decode_dataset = sealed, decode_batch, decode_dataset
+    tally.update(launches=fa.fused_attend.launches, masked=fa.fused_attend.masked_launches,
+                 wall_s=time.perf_counter() - t0)
+    if rc != 0:
+        fail(f"{where}: cli.main({' '.join(args)}) returned {rc}:\n{out.getvalue()[-3000:]}")
+    return tally, out.getvalue()
 
 
 def check_tally(tally, where: str, batches: int):
@@ -1728,8 +1784,9 @@ def decode_artifacts(config, tdir: str, pdir: str, card: str, where: str) -> Non
 
 
 def test_phase(np, config, card: str):
-    """``--phase test`` over 7 JPEGs: results.csv with 7 rows and a
-    captioned JPEG for each.  Returns the B1 launches."""
+    """``--phase test`` over 7 JPEGs through ``cli.main`` in this process:
+    results.csv with 7 rows and a captioned JPEG for each.  Returns the B1
+    launches."""
     import csv
 
     os.makedirs(config.test_image_dir, exist_ok=True)
@@ -1738,7 +1795,7 @@ def test_phase(np, config, card: str):
             f.write(body)
     path = os.path.join(os.path.dirname(config.test_image_dir), "test.json")
     config.replace(phase="test").save(path)
-    tally, _ = run_cli(["--config", path], "test")
+    tally, _ = cli_here(["--config", path], "test")
     check_tally(tally, "test", batches=1)
     with open(config.test_result_file, newline="") as f:
         rows = list(csv.DictReader(f))
@@ -1747,7 +1804,7 @@ def test_phase(np, config, card: str):
     rendered = sorted(n for n in os.listdir(config.test_result_dir) if n.endswith("_result.jpg"))
     if rendered != [f"photo_{i}_result.jpg" for i in range(7)]:
         fail(f"test: captioned JPEGs {rendered}")
-    print(f"test flagship bf16 on {card}: 7 JPEGs in {tally['wall_s']:.2f}s (decode "
+    print(f"test flagship bf16 on {card}: 7 JPEGs through cli.main in this process in {tally['wall_s']:.2f}s (decode "
           f"{tally['decode_s'][0]:.3f}s), results.csv 7 rows, 7 captioned JPEGs; fused_attend "
           f"launches {tally['launches']} over {tally['steps']} steps", flush=True)
     return tally["launches"]
@@ -1939,20 +1996,8 @@ def bulk_phase(torch, np, tmp: str, card: str):
     depths 1/2/4/8, heartbeat every 10 s), each run in a fresh process:
     a control run; a run killed by ``SAT_FI_DIE_AT_STEP`` at half the
     control's decode steps, relaunched: the output directory bitwise the
-    control's.  Then one shard decoded
-    in-process, once warm and once under torch.profiler: the card's busy
-    share.  Returns the B2 launches of the CLI runs."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from sat_tpu_torch import telemetry
-    from sat_tpu_torch.bulk import runner
+    control's.  Returns the B2 launches of the CLI runs."""
     from sat_tpu_torch.bulk.corpus import resolve_corpus
-    from sat_tpu_torch.data.vocabulary import Vocabulary
-    from sat_tpu_torch.resilience.faultinject import FaultPlan
-    from sat_tpu_torch.resilience.quarantine import QuarantineManager
-    from sat_tpu_torch.resilience.watchdog import Watchdog
-    from sat_tpu_torch.serve.engine import ServeEngine, load_serving_state
-    from sat_tpu_torch.serve.slot_pool import PagedSlotPool
 
     root = os.path.join(tmp, "bulk")
     corpus = os.path.join(root, "corpus")
@@ -2037,42 +2082,6 @@ def bulk_phase(torch, np, tmp: str, card: str):
           f"{kill_tally['wall_s']:.2f}s with {len(done)} shard(s) committed and a postmortem bundle "
           f"({sorted(os.listdir(bundles[0]))}); the relaunch "
           f"({resumed['wall_s']:.2f}s) left the output directory bitwise the uninterrupted run's", flush=True)
-
-    # one shard, in-process: the card's busy share of its decode
-    tel = telemetry.enable()
-    try:
-        state, _ = load_serving_state(control, device="cuda")
-        engine = ServeEngine(control, state, Vocabulary(control.vocabulary_size, control.vocabulary_file),
-                             device="cuda", tel=tel)
-        pool = PagedSlotPool(engine, tel=tel)
-        pool.warmup()
-        shard = files[:control.bulk_shard_rows]
-        batch, _ = runner._assemble_rows(shard, engine.loader, None,
-                                         QuarantineManager(os.path.join(root, "profile.jsonl")), 8)
-        wd, fp = Watchdog({}), FaultPlan()
-        runner._decode_shard(engine, pool, batch, fp, wd, 0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        runner._decode_shard(engine, pool, batch, fp, wd, 0)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            runner._decode_shard(engine, pool, batch, fp, wd, 0)
-            torch.cuda.synchronize()
-            profiled = time.perf_counter() - t0
-    finally:
-        telemetry.disable()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    if busy == 0:
-        fail("bulk profile: torch.profiler recorded no device time")
-    print(f"profile bulk shard on {card}: {len(shard)} images, warm {warm:.3f}s ({len(shard) / warm:.1f} "
-          f"captions/s), under the profiler {profiled:.3f}s, device busy {busy:.3f}s ({busy / profiled:.1%} "
-          f"of that wall, {busy / warm:.1%} of the warm pass)", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profile bulk kernel {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}",
-              flush=True)
     return tally["masked"] + kill_tally["masked"] + resumed["masked"]
 
 
@@ -3021,7 +3030,6 @@ def train_steady_phase(torch, np, fa, config, card: str):
     print(f"train host split on {card} (median of 5 hand-driven steps on one batch, host clock): {split}; "
           f"sum {sum(statistics.median(v) for v in parts.values()):.2f} ms", flush=True)
 
-    telemetry_cost(torch, config, median, card)
     diag_and_remat(torch, np, config, batch, card)
 
     fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
@@ -3037,67 +3045,6 @@ def train_steady_phase(torch, np, fa, config, card: str):
     print(f"train eval-loss flagship on {card}: B1 launched {launches} times (T), masked 0; metrics {values}",
           flush=True)
     return launches
-
-
-def timed_train(torch, config, warm: int, timed: int):
-    """``runtime.train`` for ``warm + timed`` steps, each ending in
-    ``torch.cuda.synchronize``; returns the median of the timed steps
-    (seconds) and the step times."""
-    from sat_tpu_torch import runtime
-
-    ends = []
-    real = runtime.make_train_step
-
-    def timed_step(cfg, mesh=None):
-        step = real(cfg, mesh)
-
-        def run(state, batch, generator):
-            out = step(state, batch, generator)
-            torch.cuda.synchronize()
-            ends.append(time.perf_counter())
-            return out
-
-        return run
-
-    runtime.make_train_step = timed_step
-    try:
-        state = runtime.train(config.replace(max_steps=warm + timed, save_period=0), device="cuda")
-    finally:
-        runtime.make_train_step = real
-    if state.step != warm + timed or len(ends) != state.step:
-        fail(f"timed train: ran {state.step} steps, timed {len(ends)}")
-    gaps = [b - a for a, b in zip(ends[warm - 1:-1], ends[warm:])]
-    return statistics.median(gaps), gaps
-
-
-def telemetry_cost(torch, config, off_median: float, card: str) -> None:
-    """The train step's median and mean with telemetry off against
-    telemetry on with ``diag_level="full"`` (spans, heartbeat,
-    telemetry.jsonl rows, the taps on each step that ends a log_every
-    interval), in turns: the steady run above (off), then on, then off
-    again, 20 timed steps each after 10 warm."""
-    from sat_tpu_torch import telemetry
-
-    root = os.path.dirname(config.save_dir)
-    on_cfg = config.replace(telemetry=True, diag_level="full", heartbeat_interval=1.0,
-                            telemetry_dir=os.path.join(root, "cost_tel"),
-                            save_dir=os.path.join(root, "cost_on"), summary_dir=os.path.join(root, "cost_on_s"))
-    try:
-        on, on_gaps = timed_train(torch, on_cfg, 10, 20)
-    finally:
-        telemetry.disable()
-    off, off_gaps = timed_train(torch, config.replace(save_dir=os.path.join(root, "cost_off"),
-                                                      summary_dir=os.path.join(root, "cost_off_s")), 10, 20)
-    if not os.path.exists(os.path.join(on_cfg.telemetry_dir, "telemetry.jsonl")):
-        fail("train telemetry cost: the telemetry-on run wrote no telemetry.jsonl")
-    mean_on, mean_off = statistics.mean(on_gaps), statistics.mean(off_gaps)
-    print(f"train telemetry cost on {card}: step median off {off_median * 1e3:.2f} ms (the steady run), on with "
-          f"diag_level=full {on * 1e3:.2f} ms (mean {mean_on * 1e3:.2f}, min {min(on_gaps) * 1e3:.2f}, max "
-          f"{max(on_gaps) * 1e3:.2f}), off again {off * 1e3:.2f} ms (mean {mean_off * 1e3:.2f}, min "
-          f"{min(off_gaps) * 1e3:.2f}, max {max(off_gaps) * 1e3:.2f}); on minus the mean of the off medians "
-          f"{(on - (off_median + off) / 2) * 1e3:+.2f} ms a step ({on / ((off_median + off) / 2) - 1:+.1%}); "
-          f"mean on minus mean off again {(mean_on - mean_off) * 1e3:+.2f} ms (log_every {config.log_every}: "
-          f"one step in {config.log_every} is tapped)", flush=True)
 
 
 def hand_steps(torch, config, batch, n: int):
@@ -3289,8 +3236,8 @@ def resnet50_train_phase(torch, np, tmp: str, card: str):
     for 20 steps, each ending in ``torch.cuda.synchronize`` (the median of
     the 10 after the first 10), peak memory; checkpoints 10 and 20 verify
     and hold ``batch_stats/``, which moved between them; the loss finite
-    and falling; then ``python -m sat_tpu_torch.cli --phase train
-    --train_cnn --load`` from a copy holding 10.npz alone, to 20: its
+    and falling; then ``--phase train --train_cnn --load`` through
+    ``cli.main`` in this process from a copy holding 10.npz alone, to 20: its
     20.npz against the in-process one (bitwise, or the largest difference
     printed; cuDNN's backward convs need not be deterministic)."""
     import shutil
@@ -3364,7 +3311,7 @@ def resnet50_train_phase(torch, np, tmp: str, card: str):
     lineage.mark_last_good(resumed, 10)
     path = os.path.join(root, "resume.json")
     config.replace(save_dir=resumed, summary_dir=os.path.join(root, "resumed_summary")).save(path)
-    tally, stdout = run_cli(["--phase", "train", "--config", path, "--train_cnn", "--load"], "resnet50 resume")
+    tally, stdout = cli_here(["--phase", "train", "--config", path, "--train_cnn", "--load"], "resnet50 resume")
     if "(step 10)" not in stdout:
         fail(f"resnet50 resume: did not restore step 10:\n{stdout[-2000:]}")
     again = load_flat(os.path.join(resumed, "20.npz"))
@@ -3373,7 +3320,7 @@ def resnet50_train_phase(torch, np, tmp: str, card: str):
     diff = max(float(np.abs(again[k].astype(np.float64) - flats[20][k]).max()) for k in again)
     if not diff <= 1e-2:
         fail(f"resnet50 resume: 20.npz differs from the uninterrupted run's by {diff:.3e}")
-    print(f"resnet50 resume on {card}: --train_cnn --load from 10.npz to 20 through the CLI in "
+    print(f"resnet50 resume on {card}: --train_cnn --load from 10.npz to 20 through cli.main in this process in "
           f"{tally['wall_s']:.2f}s; 20.npz against the uninterrupted run's: "
           f"{'bitwise' if diff == 0 else f'max abs diff {diff:.3e}'}", flush=True)
     return config
@@ -3437,7 +3384,8 @@ def import_phase(np, config, card: str):
     imported and carried unchanged into 5.npz; then that state exported
     with ``export_reference_checkpoint`` to the reference's flat npy, and
     ``--phase test --model_file x.npy`` captions the 7 test JPEGs with it
-    (B1 once a decode step).  Returns the B1 launches."""
+    (B1 once a decode step).  Both through the CLI's ``main`` in this
+    process.  Returns the B1 launches."""
     import csv
 
     from sat_tpu_torch.train.checkpoint import export_reference_checkpoint, load_flat, state_from_flat
@@ -3450,8 +3398,8 @@ def import_phase(np, config, card: str):
                            summary_dir=os.path.join(root, "summary"), max_steps=5, save_period=5, log_every=5)
     path = os.path.join(root, "train.json")
     train.save(path)
-    tally, stdout = run_cli(["--phase", "train", "--config", path, "--load_cnn", "--cnn_model_file", npy],
-                            "import train")
+    tally, stdout = cli_here(["--phase", "train", "--config", path, "--load_cnn", "--cnn_model_file", npy],
+                             "import train")
     if "265 pretrained CNN tensors loaded." not in stdout:
         fail(f"import train: the CNN import did not load 265 tensors:\n{stdout[-2000:]}")
     flat = load_flat(os.path.join(train.save_dir, "5.npz"))
@@ -3468,7 +3416,7 @@ def import_phase(np, config, card: str):
                          test_result_file=os.path.join(root, "test_results.csv"))
     test_path = os.path.join(root, "test.json")
     test.save(test_path)
-    tested, stdout = run_cli(["--config", test_path, "--model_file", ref], "import test")
+    tested, stdout = cli_here(["--config", test_path, "--model_file", ref], "import test")
     check_tally(tested, "import test", batches=1)
     if f"{count} tensors loaded from checkpoint" not in stdout:
         fail(f"import test: the exported npy did not load its {count} tensors:\n{stdout[-2000:]}")
@@ -3600,7 +3548,7 @@ def encoder_quant_phase(torch, np, tmp: str, card: str):
         del out
 
 
-# -- route and supervise (the fleet router and the crash-only supervisor) ----
+# -- route (the fleet router over replicas on this card) ---------------------
 
 ROUTE_ALONE = 12   # images sent one at a time, through the router and to one server
 
@@ -3922,99 +3870,6 @@ def route_phase(torch, np, config, card: str, mode: str, tmp: str):
     if (mode == "batch" and b1 == 0) or (mode == "continuous" and b2 == 0):
         fail(f"{where}: the replicas launched B1 {b1} and B2 {b2} times")
     return b1, b2
-
-
-def supervise_phase(np, tmp: str, card: str):
-    """The flagship trained 6 steps through the CLI (a control), beside the
-    same run under ``--supervise`` with ``SAT_FI_WEDGE_AT_STEP=5`` and the
-    watchdog armed by ``--watchdog``: the child is aborted with exit 86
-    and a stack dump, the supervisor restarts it once from LAST_GOOD (3)
-    and it ends at 6.  Prints the max abs difference of the two 6.npz."""
-    from sat_tpu_torch.resilience import lineage
-    from sat_tpu_torch.train.checkpoint import load_flat
-
-    where = "supervise"
-    here = os.path.dirname(os.path.abspath(__file__))
-    root = os.path.join(tmp, "supervise")
-    image_dir, caption_file = write_coco_fixture(np, os.path.join(root, "data"), 40, SEED + 9)
-    base = flagship_config(tmp).replace(
-        phase="train", train_image_dir=image_dir, train_caption_file=caption_file,
-        vocabulary_file=os.path.join(root, "vocabulary.csv"), max_steps=6, save_period=3, log_every=1,
-        watchdog_step_s=5.0, watchdog_data_wait_s=120.0, watchdog_dispatch_s=120.0,
-        watchdog_checkpoint_s=120.0, watchdog_grace_s=0.3, supervise_backoff_s=0.1,
-    )
-    write_vocabulary(np, base.vocabulary_file, base.vocabulary_size, caption_words())
-    # the control and the supervised run side by side (the card time-slices
-    # them): the numbers do not depend on it, and the phase takes one wall
-    runs, procs = {}, {}
-    try:
-        for name in ("control", "supervised"):
-            d = os.path.join(root, name)
-            cfg = base.replace(save_dir=os.path.join(d, "models"), summary_dir=os.path.join(d, "summary"),
-                               temp_annotation_file=os.path.join(d, "anns.csv"),
-                               temp_data_file=os.path.join(d, "data.npy"))
-            os.makedirs(d)
-            path = os.path.join(d, "train.json")
-            cfg.save(path)
-            args = ["--config", path, "--watchdog", "0.2"] + (["--supervise", "--blackbox"]
-                                                              if name == "supervised" else [])
-            env = {**os.environ, "SAT_FI_WEDGE_AT_STEP": "5"} if name == "supervised" else None
-            # a group of its own: the supervisor's child goes down with it;
-            # output to files, so neither run waits on a pipe the other's turn drains
-            with open(os.path.join(d, "out.log"), "w") as out, open(os.path.join(d, "err.log"), "w") as err:
-                procs[name] = (cfg, time.perf_counter(), subprocess.Popen(
-                    [sys.executable, "-m", "sat_tpu_torch.cli", *args], cwd=here, env=env,
-                    stdout=out, stderr=err, start_new_session=True))
-        for name, (cfg, t0, proc) in procs.items():
-            try:
-                proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                fail(f"{where} {name}: did not finish within 600s")
-            wall = time.perf_counter() - t0
-            d = os.path.dirname(cfg.save_dir)
-            with open(os.path.join(d, "out.log")) as out, open(os.path.join(d, "err.log")) as err:
-                stdout, stderr = out.read(), err.read()
-            if proc.returncode != 0:
-                fail(f"{where} {name}: exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
-            if lineage.last_good_step(cfg.save_dir) != 6:
-                fail(f"{where} {name}: LAST_GOOD {lineage.last_good_step(cfg.save_dir)}, expected 6")
-            runs[name] = (cfg, wall, stderr)
-    finally:
-        stop_groups([p for _, _, p in procs.values()])
-    cfg, wall, err = runs["supervised"]
-    for line in ("sat_tpu_torch watchdog: phase 'step' exceeded", "aborting with exit code 86",
-                 "watchdog abort (wedged run; LAST_GOOD landed)", "run completed after 1 restart(s)"):
-        if line not in err:
-            fail(f"{where}: {line!r} is not in the supervisor's stderr:\n{err[-3000:]}")
-    dump = os.path.join(cfg.summary_dir, "telemetry", "watchdog_stacks.txt")
-    if not os.path.isfile(dump):
-        fail(f"{where}: no stack dump at {dump}")
-    # --blackbox: the wedged child left its postmortem bundle before exit 86
-    bundles = glob.glob(os.path.join(cfg.summary_dir, "telemetry", "postmortem_*"))
-    manifests = []
-    for b in bundles:
-        with open(os.path.join(b, "manifest.json")) as f:
-            manifests.append(json.load(f))
-    if len(bundles) != 1 or manifests[0]["reason"] != "watchdog_wedge" or manifests[0]["exit_code"] != 86:
-        fail(f"{where}: postmortem bundles {bundles} {manifests}")
-    bundle_files = sorted(os.listdir(bundles[0]))
-    got = load_flat(os.path.join(cfg.save_dir, "6.npz"))
-    want = load_flat(os.path.join(runs["control"][0].save_dir, "6.npz"))
-    if sorted(got) != sorted(want):
-        fail(f"{where}: the two 6.npz hold different names")
-    diffs = {k: float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64))))
-             for k in want if np.asarray(want[k]).size}
-    worst = max(diffs, key=diffs.get)
-    differing = sum(1 for v in diffs.values() if v != 0)
-    print(f"{where} on {card}: control 6 flagship steps through the CLI in {runs['control'][1]:.2f}s, beside "
-          f"the supervised run; "
-          f"--supervise --blackbox with SAT_FI_WEDGE_AT_STEP=5: child aborted with exit 86 (stack dump "
-          f"and postmortem bundle {bundle_files} written, phase {manifests[0].get('phase')!r}), restarted "
-          f"once from LAST_GOOD 3, ended at 6, in {wall:.2f}s; final 6.npz vs the control's: max abs "
-          f"difference {diffs[worst]:.3e} ({worst}), {differing}/{len(diffs)} arrays differ", flush=True)
-    if differing:
-        fail(f"{where}: the supervised run's 6.npz is not bitwise its control's")
-    return diffs[worst]
 
 
 # -- parallel training and mesh decode (torch.distributed, two ranks) --------
@@ -4660,6 +4515,178 @@ def replay_phase(torch, np, quality: dict, card: str):
             serve_b2 + tally["masked"] + fa.fused_attend.masked_launches)
 
 
+# -- the chaos campaign and the V=5000 run (the evidence tools) --------------
+
+# the campaign's small model widened to the flagship's (compute_dtype stays
+# float32, as the campaign's small model has it: scenarios compare
+# checkpoints bitwise)
+FLAGSHIP_SETS = ("image_size=224", "dim_embedding=512", "num_lstm_units=512", "dim_initialize_layer=512",
+                 "dim_attend_layer=512", "dim_decode_layer=1024")
+# the six scenarios, as three campaigns run side by side (the card and the
+# host's cores are shared; every deadline in them is seconds, a flagship
+# step a fraction of one); the supervised wedge and its control share a
+# workdir (their 6.npz are compared)
+CHAOS_GROUPS = (("control", "wedge_watchdog"), ("poison_quarantine_replay",),
+                ("wedge_postmortem", "systemic_no_restart", "serve_wedge_continuous"))
+
+
+def chaos_phase(np, tmp: str, card: str):
+    """``python -m sat_tpu_torch.tools.chaos_campaign`` at flagship widths
+    (``--extra-set``) with ``--keep --workdir`` on six scenarios, as three
+    campaigns run side by side (``CHAOS_GROUPS``), each in a fresh process:
+    each exits 0 with pass rate 1.0.  From the kept workdirs: the
+    supervised wedge's exit 86 after the watchdog's stack dump, one
+    restart from LAST_GOOD 3, LAST_GOOD 6, its 6.npz bitwise the
+    control's; the wedge's postmortem bundle (exit 86); the continuous
+    serve wedge launched B2 on cuda:0.  Returns the B2 launches."""
+    from sat_tpu_torch.resilience import lineage
+    from sat_tpu_torch.train.checkpoint import load_flat
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "chaos")
+    os.makedirs(root)
+    sets = [x for w in FLAGSHIP_SETS for x in ("--extra-set", w)]
+    procs = []
+    try:
+        for i, group in enumerate(CHAOS_GROUPS):
+            wd = os.path.join(root, f"campaign{i}")
+            args = ["--only", ",".join(group), "--keep", "--workdir", wd,
+                    "--out", os.path.join(root, f"report{i}", "report.json"), *sets]
+            with open(os.path.join(root, f"campaign{i}.out"), "w") as out, \
+                    open(os.path.join(root, f"campaign{i}.err"), "w") as err:
+                procs.append((wd, args, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "sat_tpu_torch.tools.chaos_campaign", *args], cwd=here,
+                    stdout=out, stderr=err, start_new_session=True)))
+        reports, workdirs = {}, {}
+        for i, (wd, args, t0, proc) in enumerate(procs):
+            try:
+                proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                fail(f"chaos campaign {i}: did not finish within 900s")
+            wall = time.perf_counter() - t0
+            with open(os.path.join(root, f"campaign{i}.err")) as f:
+                err = f.read()
+            print(f"chaos campaign {i} on {card}: python -m sat_tpu_torch.tools.chaos_campaign {' '.join(args)} "
+                  f"exited {proc.returncode} in {wall:.1f}s", flush=True)
+            path, rows = os.path.join(root, f"report{i}", "report.json"), []
+            if os.path.exists(path):
+                with open(path) as f:
+                    rows = json.load(f)
+            for row in rows[:-1]:
+                extras = {k: v for k, v in row.items() if k not in ("metric", "value", "unit", "vs_baseline",
+                                                                     "seconds", "schema_version", "git_sha",
+                                                                     "run_id", "stamp_unix", "process_index",
+                                                                     "process_count", "device")}
+                print(f"chaos {row['metric'][len('chaos_'):]} on {card}: {'PASS' if row['value'] == 1.0 else 'FAIL'} "
+                      f"in {row['seconds']}s {json.dumps(extras)}", flush=True)
+            if proc.returncode != 0 or not rows or rows[-1]["value"] != 1.0 or \
+                    rows[-1]["scenarios"] != len(CHAOS_GROUPS[i]):
+                fail(f"chaos campaign {i}: exit {proc.returncode}, pass rate "
+                     f"{rows[-1] if rows else None}:\n{err[-4000:]}")
+            if rows[-1]["device"].get("kind") != torch_kind():
+                fail(f"chaos campaign {i}: its rows are stamped {rows[-1]['device']}, not the card")
+            for r in rows[:-1]:
+                name = r["metric"][len("chaos_"):]
+                reports[name], workdirs[name] = r, wd
+    finally:
+        stop_groups([p for *_, p in procs])
+
+    where = "chaos wedge_watchdog"
+    wd = workdirs["wedge_watchdog"]
+    with open(os.path.join(wd, "wedge.err")) as f:
+        err = f.read()
+    with open(os.path.join(wd, "wedge.out")) as f:
+        out = f.read()
+    for line in ("sat_tpu_torch watchdog: phase 'step' exceeded", "aborting with exit code 86",
+                 "watchdog abort (wedged run; LAST_GOOD landed)", "run completed after 1 restart(s)"):
+        if line not in err:
+            fail(f"{where}: {line!r} is not in the supervisor's stderr:\n{err[-3000:]}")
+    if err.count("restarting from LAST_GOOD") != 1 or "tensors loaded from checkpoint (step 3)." not in out:
+        fail(f"{where}: not one restart from LAST_GOOD 3:\n{err[-2000:]}\n{out[-2000:]}")
+    dump = os.path.join(wd, "wedge", "summary", "telemetry", "watchdog_stacks.txt")
+    if not os.path.isfile(dump):
+        fail(f"{where}: no stack dump at {dump}")
+    save_dir = os.path.join(wd, "wedge", "models")
+    if lineage.last_good_step(save_dir) != 6:
+        fail(f"{where}: LAST_GOOD {lineage.last_good_step(save_dir)}, expected 6")
+    got = load_flat(os.path.join(save_dir, "6.npz"))
+    want = load_flat(os.path.join(wd, "control", "models", "6.npz"))
+    if sorted(got) != sorted(want):
+        fail(f"{where}: the two 6.npz hold different names")
+    differing = [k for k in want if not np.array_equal(np.asarray(got[k]), np.asarray(want[k]))]
+    bundles = glob.glob(os.path.join(workdirs["wedge_postmortem"], "wedge_pm", "summary", "telemetry",
+                                     "postmortem_*"))
+    manifests = []
+    for b in bundles:
+        with open(os.path.join(b, "manifest.json")) as f:
+            manifests.append(json.load(f))
+    if len(bundles) != 1 or manifests[0]["reason"] != "watchdog_wedge" or manifests[0]["exit_code"] != 86:
+        fail(f"chaos wedge_postmortem: postmortem bundles {bundles} {manifests}")
+    print(f"{where} on {card}: the flagship (widths {', '.join(FLAGSHIP_SETS)}, float32) trained 6 steps "
+          f"under --supervise with SAT_FI_WEDGE_AT_STEP=5 (5 s step deadline): the watchdog's stack dump, exit 86, "
+          f"one restart from LAST_GOOD 3, LAST_GOOD 6 ({reports['wedge_watchdog']['seconds']}s, the control "
+          f"{reports['control']['seconds']}s); final 6.npz vs the control's: {len(differing)}/{len(want)} "
+          f"arrays differ; the wedge_postmortem run's bundle {sorted(os.listdir(bundles[0]))} "
+          f"(phase {manifests[0].get('phase')!r})", flush=True)
+    if differing:
+        fail(f"{where}: the supervised run's 6.npz is not bitwise its control's: {differing[:5]}")
+    serve = reports["serve_wedge_continuous"]
+    if serve["serve_device"] != "cuda:0" or serve["masked_launches"] <= 0 or serve["launches"] != 0:
+        fail(f"chaos serve_wedge_continuous: device {serve['serve_device']}, B1 {serve['launches']}, "
+             f"B2 {serve['masked_launches']}: the masked kernel did not run on the card alone")
+    return serve["masked_launches"]
+
+
+def torch_kind() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
+V5000_STEPS = 8   # of the tool's 48
+
+
+def vocab5000_phase(np, tmp: str, card: str):
+    """``python -m sat_tpu_torch.tools.vocab5000_run --steps 8 --eval-anns 8
+    --image-size 224`` (1700 rich-corpus images) in a fresh process with
+    CLI_HARNESS's counts: the vocabulary exactly 5000 words, the tensors
+    sharded over ``model`` (the embedding rows and the last decode layer's
+    kernel and bias), the loss parity of one process and the (2,4) mesh
+    (eight ranks sharing the card under gloo) under 5e-2 at every record,
+    finite scores both ways, B1 once a decode step of the one-process eval
+    and in every rank of the mesh's.  Returns the B1 launches."""
+    where = "vocab5000"
+    out = os.path.join(tmp, "vocab5000")
+    tally, _ = run_cli(["sat_tpu_torch.tools.vocab5000_run", "--steps", str(V5000_STEPS), "--eval-anns", "8",
+                        "--image-size", "224", "--out", out], where, timeout=900, harness=TOOL_HARNESS)
+    with open(os.path.join(out, "result.json")) as f:
+        r = json.load(f)
+    print(f"{where} on {card}: {json.dumps({k: v for k, v in r.items() if not k.startswith('scores')})}",
+          flush=True)
+    print(f"{where} scores (beam 3, {V5000_STEPS} steps from random weights): one process "
+          f"{ {k: round(v, 4) for k, v in r['scores_single'].items()} }, mesh "
+          f"{ {k: round(v, 4) for k, v in r['scores_tp'].items()} }", flush=True)
+    print(f"{where} median step on {card}: one process {r['step_ms_single']} ms, the (2,4) mesh's rank 0 "
+          f"{r['step_ms_tp']} ms (batch 8, V=5000, 224 px; eight ranks time-slice the card)", flush=True)
+    if r["vocab_words"] != 5000 or r["tp_sharded_tensors"] != 3 or r["mesh_shape"] != [2, 4]:
+        fail(f"{where}: vocabulary {r['vocab_words']}, {r['tp_sharded_tensors']} tensors sharded over model, "
+             f"mesh {r['mesh_shape']}")
+    if not r["loss_parity_max_rel"] < 5e-2 or r["train_steps"] != V5000_STEPS or r["loss_records"] < 2:
+        fail(f"{where}: loss parity {r['loss_parity_max_rel']} over {r['loss_records']} records")
+    for key in ("scores_single", "scores_tp"):
+        if len(r[key]) != 7 or not all(np.isfinite(v) for v in r[key].values()):
+            fail(f"{where}: {key} {r[key]}")
+    if r["device"] != torch_kind():
+        fail(f"{where}: ran on {r['device']}")
+    if not 0 < tally["steps"] == tally["launches"] == r["launches_single_eval"] or tally["masked"]:
+        fail(f"{where}: the one-process eval launched B1 {tally['launches']} times over {tally['steps']} decode "
+             f"steps (masked {tally['masked']})")
+    ranks = r["launches_tp_eval_ranks"]
+    if len(ranks) != 8 or not all(n > 0 for n in ranks):
+        fail(f"{where}: the mesh eval's ranks launched B1 {ranks}")
+    return tally["launches"] + sum(ranks)
+
+
 def memory_lead(torch, card: str) -> None:
     """What holds the card's memory at this point of the run: the
     allocator's statistics (``torch.cuda.memory_stats``) and the live
@@ -4789,7 +4816,6 @@ def phases(torch, np, fa, card: str):
         ("train reference", (), lambda tmp: train_reference_phase(torch, np, fa)),
         ("train", ("eval steady",),
          lambda tmp: train_phase(np, train_config(os.path.join(tmp, "steady"), tmp), card)),
-        ("supervise", (), lambda tmp: supervise_phase(np, tmp, card)),
         ("train steady", ("train",), train_steady),
         ("resnet50 reference", (), lambda tmp: resnet50_reference_phase(torch, np, fa, tmp)),
         ("resnet50 serve and bulk", ("bulk",), r50_serve_and_bulk),
@@ -4803,6 +4829,8 @@ def phases(torch, np, fa, card: str):
         ("elastic", ("mesh train",), lambda tmp: elastic_phase(np, tmp, card, got)),
         ("quality", (), quality),
         ("replay", ("quality",), lambda tmp: replay_phase(torch, np, got["quality"], card)),
+        ("chaos", (), lambda tmp: chaos_phase(np, tmp, card)),
+        ("vocab5000", (), lambda tmp: vocab5000_phase(np, tmp, card)),
     ]
 
 
@@ -4884,6 +4912,7 @@ def main() -> int:
     mesh_ranks_b1 = got["mesh train"][0] + got["vocab parallel"]
     mesh_b1 = mesh_ranks_b1 + got["mesh train"][1]
     quality_b1, (replay_b1, replay_b2) = got["quality"], got["replay"]
+    chaos_b2, v5000_b1 = got["chaos"], got["vocab5000"]
 
     for B, N, what in ((60, 196, "eval: batch 20 x beam 3"), (20, 196, "eval-loss step: batch 20"),
                        (96, 49, "ResNet50 bucket 32 x beam 3"), (60, 49, "ResNet50 eval: batch 20 x beam 3")):
@@ -4892,19 +4921,20 @@ def main() -> int:
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     vgg_b1 = (launches + ops_launches + eval_launches + test_launches + eval_loss_launches
-              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1)
+              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1 + v5000_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
           f"{eval_launches}, test {test_launches}, eval-loss "
           f"step {eval_loss_launches}, serve planes {planes_b1}, route replicas {route_b1}, mesh evals in every "
           f"rank of the data- and vocab-parallel launches {mesh_ranks_b1}, their one-process reference "
-          f"{mesh_b1 - mesh_ranks_b1}, quality evals {quality_b1}, replay serving and tool {replay_b1}; "
+          f"{mesh_b1 - mesh_ranks_b1}, quality evals {quality_b1}, replay serving and tool {replay_b1}, "
+          f"vocab5000 evals (one process and eight ranks) {v5000_b1}; "
           f"ResNet50 batch "
           f"serve {r50_launches}, eval "
           f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
           f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}, route replicas "
-          f"{route_b2}, replay serving and tool {replay_b2}; ResNet50 continuous "
+          f"{route_b2}, replay serving and tool {replay_b2}, the chaos serve wedge {chaos_b2}; ResNet50 continuous "
           f"serve {r50_masked}, bulk {r50_bulk}, serve planes {r50_planes}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 196, "bfloat16"))
     r50_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 49, "bfloat16"))
@@ -4928,6 +4958,7 @@ def main() -> int:
         "launches_route_replicas": route_b1,
         "launches_mesh_ranks": mesh_ranks_b1,
         "launches_quality_and_replay": quality_b1 + replay_b1,
+        "launches_vocab5000": v5000_b1,
         "resnet50": {"shape": "B=96 N=49 da=512 D=2048 bfloat16", "ms": r50_row["ms"],
                      "plain_ms": r50_row["plain_ms"], "bound_ms": r50_row["bound_ms"],
                      "bound_by": r50_row["bound_by"]},
@@ -4937,7 +4968,7 @@ def main() -> int:
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
         "launches": (masked_launches + ops_masked + bulk_launches + planes_b2 + route_b2 + r50_masked + r50_bulk
-                     + r50_planes + replay_b2),
+                     + r50_planes + replay_b2 + chaos_b2),
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],
@@ -4949,6 +4980,7 @@ def main() -> int:
         "launches_resnet50": r50_masked + r50_bulk + r50_planes,
         "launches_route_replicas": route_b2,
         "launches_replay": replay_b2,
+        "launches_chaos": chaos_b2,
         "resnet50": {"shape": "B=48 N=49 da=512 D=2048 bfloat16, 48 rows live", "ms": r50_masked_row["ms"],
                      "plain_ms": r50_masked_row["plain_ms"], "bound_ms": r50_masked_row["bound_ms"],
                      "bound_by": r50_masked_row["bound_by"]},

@@ -191,7 +191,7 @@ class Config:
     # black-box flight recorder: bounded on-disk ring journaling recent
     # counters/gauges/events; abnormal exits (watchdog 86, corruption 87,
     # sentinel trips, uncaught exceptions) dump a postmortem_<run_id>/
-    # bundle summarized by scripts/analyze_postmortem.py
+    # bundle summarized by python -m sat_tpu_torch.tools.analyze_postmortem
     blackbox: bool = False
 
     # ---- online serving (docs/SERVING.md; no reference equivalent) ----

@@ -157,7 +157,14 @@ class PrefetchLoader:
     (``caption_all_oov``) or one that fills the whole caption length
     (``caption_overlength``), and every file or batch position the ledger
     already names.  Image entries are keyed by file, caption entries by
-    (pass, batch, row): ``pass`` counts this loader's iterations."""
+    (pass, batch, row): ``pass`` counts this loader's iterations.
+
+    A mesh rank's dataset view (``parallel.data``) yields each global
+    batch and names the ``block`` of rows the rank keeps: the whole batch
+    is assembled and its bad rows substituted as one process would, then
+    the block is kept.  The rank appends to the ledger only the bad rows
+    of its own block (each row once across the ranks); the others are
+    counted all the same, so every rank's ceiling sees the run's rows."""
 
     def __init__(
         self,
@@ -260,22 +267,26 @@ class PrefetchLoader:
                         continue
                     bad.append((i, files[i], reason, None, "caption"))
                     flagged.add(i)
+        block = getattr(self.dataset, "block", None)
         if bad:
-            self._quarantine_and_substitute(out, bad, len(files), pass_idx, batch_idx)
+            self._quarantine_and_substitute(out, bad, len(files), pass_idx, batch_idx, block)
+        if block is not None:
+            out = {k: v[block[0]:block[1]] for k, v in out.items()}
         return out
 
-    def _quarantine_and_substitute(self, out, bad, n_rows, pass_idx, batch_idx) -> None:
-        """Ledger every newly bad row, then overwrite each bad row wholesale
-        with a deterministically chosen healthy row of the same batch:
-        the geometry never changes, and a replay with the same ledger
-        substitutes identically."""
+    def _quarantine_and_substitute(self, out, bad, n_rows, pass_idx, batch_idx, block=None) -> None:
+        """Ledger every newly bad row (only ``block``'s rows, when given),
+        then overwrite each bad row wholesale with a deterministically
+        chosen healthy row of the same batch: the geometry never changes,
+        and a replay with the same ledger substitutes identically."""
         q = self.quarantine
         bad_set = {b[0] for b in bad}
         healthy = [i for i in range(n_rows) if i not in bad_set]
         for i, f, reason, exc, kind in sorted(bad, key=lambda b: b[0]):
             pos = (pass_idx, batch_idx, i) if kind == "caption" else None
             if reason != "replayed_ledger":
-                q.quarantine(f, reason, kind=kind, pos=pos, exc=exc)  # may raise SystemicCorruption
+                own = block is None or block[0] <= i < block[1]
+                q.quarantine(f, reason, kind=kind, pos=pos, exc=exc, record=own)  # may raise SystemicCorruption
             if not healthy:
                 raise SystemicCorruption(
                     f"every row of batch {batch_idx} is quarantined (last: {f!r}, "

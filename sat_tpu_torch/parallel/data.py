@@ -1,11 +1,14 @@
 """Per-rank input sharding — the port of ``sat_tpu.parallel.data``.
 
-Each rank feeds the rows of the global batch that its data index owns:
-the view below yields ``global_batch / data_size`` items a step, block
-``r`` of every global batch, so the global batch the ranks of one step
-hold together is element for element the batch a single process feeds
-at the same (seed, epoch, step).  No global tensor is ever assembled
-(``parallel.collectives``).
+Each rank feeds the rows of the global batch that its data index owns,
+the block ``r`` of every global batch, so the global batch the ranks of
+one step hold together is element for element the batch a single process
+feeds at the same (seed, epoch, step).  The rank's view yields the whole
+global batch and names its block: the loader (``data.images.
+PrefetchLoader``) assembles the global batch, quarantines and
+substitutes its bad rows as one process would (a substitute may come
+from another rank's block), and keeps the block.  No global tensor is
+ever assembled on the device (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -35,11 +38,13 @@ class _ProcessShardView(DataSet):
 
     Every epoch it draws the global keyed order (the permutation and the
     ``fake_count`` padding of ``DataSet._set_epoch``, the same rng in the
-    same call order) and takes the contiguous block of each global batch
-    that its data index owns, so:
+    same call order) and yields each global batch whole; ``block`` is
+    the ``[start, stop)`` of its rows that this rank keeps (the loader
+    slices it after the batch's quarantine), so:
 
     * a run over ``d`` data ranks computes each step over the example
-      set and row order of the single-process run;
+      set and row order of the single-process run, substituted rows
+      included;
     * a run checkpointed under one layout and resumed under another
       replays the same global stream (the cursor is f(seed, epoch)).
 
@@ -48,10 +53,10 @@ class _ProcessShardView(DataSet):
 
     def __init__(self, global_ds: DataSet, shard_index: int, shard_count: int):
         self._global_batch = global_ds.batch_size
-        self._shard_index = shard_index
-        self._shard_count = shard_count
+        local = global_ds.batch_size // shard_count
+        self.block = (shard_index * local, (shard_index + 1) * local)
         super().__init__(
-            global_ds.image_ids, global_ds.image_files, global_ds.batch_size // shard_count,
+            global_ds.image_ids, global_ds.image_files, local,
             global_ds.word_idxs, global_ds.masks, is_train=global_ds.is_train,
             shuffle=global_ds.shuffle, seed=global_ds.seed,
         )
@@ -72,13 +77,18 @@ class _ProcessShardView(DataSet):
         order = list(rng.permutation(self.count)) if self.shuffle else list(range(self.count))
         if self.fake_count:
             order += list(rng.choice(self.count, self.fake_count))
-        B, Bl, r = self._global_batch, self.batch_size, self._shard_index
-        self.idxs = [order[b * B + r * Bl + k] for b in range(self.num_batches) for k in range(Bl)]
-        self._pad_idxs = []  # the padding is part of the global order above
+        self.idxs = order      # the global order, the padding included
+        self._pad_idxs = []
+
+    def seek(self, epoch: int, batch_offset: int = 0) -> None:
+        self._set_epoch(epoch)
+        self.current_idx = batch_offset * self._global_batch
+        self._pending_seek = True
 
     def next_batch(self):
-        idxs = self.idxs[self.current_idx: self.current_idx + self.batch_size]
-        self.current_idx += self.batch_size
+        """The next global batch: files, or (files, word_idxs, masks)."""
+        idxs = self.idxs[self.current_idx: self.current_idx + self._global_batch]
+        self.current_idx += self._global_batch
         files = self.image_files[idxs]
         if self.is_train:
             return files, self.word_idxs[idxs], self.masks[idxs]
@@ -90,15 +100,15 @@ class _ProcessShardView(DataSet):
         else:
             self.current_idx = 0
             self._set_epoch(self.epoch + 1)
-        # the local sequence is always whole batches
+        # always whole global batches
         while self.current_idx < len(self.idxs):
             yield self.next_batch()
 
 
 def process_local_dataset(dataset: DataSet, process_index: int, process_count: int) -> DataSet:
-    """This rank's view of a global DataSet: ``global_batch /
-    process_count`` items a step, the block of each global batch that
-    ``process_index`` owns.  ``process_count`` 1 returns the dataset
+    """This rank's view of a global DataSet: the global batches, with the
+    block of ``global_batch / process_count`` rows that ``process_index``
+    keeps (``block``).  ``process_count`` 1 returns the dataset
     unchanged."""
     if process_count == 1:
         return dataset

@@ -86,8 +86,11 @@ class QuarantineManager:
         ledger_path: str,
         max_fraction: float = 0.5,
         min_records: int = MIN_RECORDS_FOR_CEILING,
+        appends: bool = True,
     ) -> None:
         self.ledger_path = ledger_path
+        # False: a mesh rank whose model-axis peer writes the shared ledger
+        self.appends = appends
         self.max_fraction = float(max_fraction)
         self.min_records = int(min_records)
         self._lock = threading.Lock()
@@ -183,10 +186,14 @@ class QuarantineManager:
         kind: str = "image",
         pos: Optional[Tuple[int, int, int]] = None,
         exc: Optional[BaseException] = None,
+        record: bool = True,
     ) -> None:
         """Record one bad row.  Dedups (a bad file re-encountered every
         epoch is one ledger line), appends, updates telemetry, and
-        raises :class:`SystemicCorruption` when the ceiling trips."""
+        raises :class:`SystemicCorruption` when the ceiling trips.
+        ``record=False`` (a mesh rank's row of another rank's block)
+        indexes and counts the row without appending it: its owner
+        does."""
         with self._lock:
             key_file = _norm(image_file) if image_file else ""
             if kind == "caption" and pos is not None:
@@ -208,7 +215,8 @@ class QuarantineManager:
             if exc is not None:
                 entry["error"] = f"{type(exc).__name__}: {exc}"
             self._index(entry)
-            self._append(entry)
+            if record and self.appends:
+                self._append(entry)
             telemetry.count("data/quarantined")
             self._gauge_locked()
             total = len(self._by_file) + len(self._by_pos)

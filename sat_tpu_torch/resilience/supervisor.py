@@ -77,13 +77,13 @@ def _describe(rc: int) -> str:
         return (
             "watchdog abort (wedged run; LAST_GOOD landed); with "
             "--blackbox a postmortem_<run_id>/ bundle is in the telemetry "
-            "dir — summarize with scripts/analyze_postmortem.py"
+            "dir — summarize with python -m sat_tpu_torch.tools.analyze_postmortem"
         )
     if rc == DATA_CORRUPTION_EXIT_CODE:
         return (
             "systemic data corruption (quarantine ceiling); with "
             "--blackbox see postmortem_<run_id>/ via "
-            "scripts/analyze_postmortem.py"
+            "python -m sat_tpu_torch.tools.analyze_postmortem"
         )
     if rc < 0:
         try:

@@ -208,28 +208,31 @@ def _fleet_gather(mesh, vec):
 _QUARANTINES: Dict[str, QuarantineManager] = {}
 
 
-def _quarantine_for(config: Config) -> QuarantineManager:
+def _quarantine_for(config: Config, mesh=None) -> QuarantineManager:
     path = ledger_path_for(config)
     q = _QUARANTINES.get(path)
     if q is None:
-        q = QuarantineManager(path, max_fraction=config.quarantine_max_fraction)
+        # the ranks along a mesh's model axis feed the same rows: the
+        # first of them writes the ledger, the others count alike
+        appends = mesh is None or mesh.index("model") == 0
+        q = QuarantineManager(path, max_fraction=config.quarantine_max_fraction, appends=appends)
         _QUARANTINES[path] = q
     return q
 
 
-def make_loader(config: Config, dataset: DataSet) -> PrefetchLoader:
+def make_loader(config: Config, dataset: DataSet, mesh=None) -> PrefetchLoader:
     """The host-side input pipeline of a dataset: the shard cache resolved
     per ``config.shard_cache`` (``data.shards``: build-or-load for "on",
     an existing valid cache for "auto", live JPEG decode when none), the
     prefetching loader ``prefetch_depth`` batches ahead, and the run's
-    quarantine."""
+    quarantine (on a ``mesh``, ledgered once across the ranks)."""
     return PrefetchLoader(
         dataset,
         ImageLoader(size=config.image_size, raw=config.device_preprocess),
         num_workers=config.num_data_workers,
         prefetch_depth=config.prefetch_depth,
         shard_cache=resolve_shard_cache(config, dataset.image_files),
-        quarantine=_quarantine_for(config),
+        quarantine=_quarantine_for(config, mesh),
     )
 
 
@@ -683,7 +686,7 @@ def train(
         state = shard_train_state(state, placement_config(config), mesh)
         dataset = process_local_dataset(dataset, *mesh_data_shard(mesh))
     train_step = make_train_step(config, mesh)
-    loader = make_loader(config, dataset)
+    loader = make_loader(config, dataset, mesh)
     retry.configure(config.io_retries, config.io_retry_base_s)
     sentinel = AnomalySentinel(config.anomaly_policy, config.anomaly_spike_factor)
     plan = FaultPlan.from_env()
@@ -1116,7 +1119,7 @@ def decode_dataset(
             from .telemetry import blackbox
 
             stack.callback(blackbox.run_finalizers)
-        feed = device_prefetch(make_loader(config, feed_ds), dev)
+        feed = device_prefetch(make_loader(config, feed_ds, mesh), dev)
         stack.callback(feed.close)
         prof = stack.enter_context(ProfilerWindow(config, max_start=dataset.num_batches - 1, device=dev))
         if mesh is not None:

@@ -440,7 +440,7 @@ def dump_postmortem(
     print(
         f"sat_tpu_torch: postmortem bundle written: {bundle} "
         f"(reason={reason}, exit_code={exit_code}) — summarize with "
-        "scripts/analyze_postmortem.py",
+        "python -m sat_tpu_torch.tools.analyze_postmortem",
         file=sys.stderr,
         flush=True,
     )

@@ -14,10 +14,17 @@ file name, flags and exit codes of ``scripts/<name>.py``:
 * :mod:`.replay_exemplar` — replays a quality-plane exemplar through a
   freshly booted engine in the geometry it was captured in;
 * :mod:`.merge_traces` and :mod:`.check_slo` — the operator's tools over
-  Chrome trace exports and SLO logs.
+  Chrome trace exports and SLO logs; :mod:`.analyze_postmortem` — the
+  summary of a flight recorder's postmortem bundle;
+* :mod:`.chaos_campaign` — the fault matrix, each scenario a real CLI run
+  or a serve stack in a child process on the fixture of :mod:`.fixtures`;
+* :mod:`.vocab5000_run` — training and beam eval at V=5000 in one process
+  against a (2,4) vocab-parallel mesh, whose ranks run the CLI through
+  :mod:`.cli_ranks`.
 
 Every tool runs on the card unless the caller asks for the CPU (``--cpu``
-where the JAX script has the flag, ``SAT_TORCH_DEVICE=cpu`` always);
-without a card and without that request it raises.  Importing a tool
+on the quality tools, the chaos campaign and the V=5000 run,
+``SAT_TORCH_DEVICE=cpu`` on any tool); without a card and without that
+request it raises.  Importing a tool
 loads nothing heavy: torch and the model code come in inside ``main``.
 """

@@ -25,7 +25,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from typing import List, Optional
@@ -131,21 +130,11 @@ def card_facts(dev) -> dict:
     None on the CPU or where nvidia-smi does not answer)."""
     import torch
 
+    from .. import telemetry
+
     if dev.type != "cuda":
         return {"device": "cpu", "power_limit": None}
-    limit = None
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        )
-        rows = out.stdout.strip().splitlines() if out.returncode == 0 else []
-        index = dev.index or 0
-        if index < len(rows):
-            limit = rows[index].rsplit(",", 1)[-1].strip()
-    except (OSError, subprocess.SubprocessError):
-        pass
-    return {"device": torch.cuda.get_device_name(dev), "power_limit": limit}
+    return {"device": torch.cuda.get_device_name(dev), "power_limit": telemetry.power_limit(dev.index or 0)}
 
 
 def serving_state(state):

@@ -183,8 +183,9 @@ def _fake_jax_mesh(shape):
 def test_mesh_data_shard_and_feed_match_jax(monkeypatch, shape):
     """One process a mesh position, as a torchrun launch has: each rank's
     ``mesh_data_shard`` is JAX's for the process holding that device, and
-    its view of a shuffled, padded global set yields JAX's view's batches
-    for three epochs and after a mid-epoch seek."""
+    the block of each global batch its view yields (the rows the loader
+    keeps) is JAX's view's batch, for three epochs and after a mid-epoch
+    seek."""
     world = int(np.prod(shape))
     monkeypatch.setattr(jax, "process_count", lambda: world)
     rng = np.random.default_rng(3)
@@ -201,14 +202,74 @@ def test_mesh_data_shard_and_feed_match_jax(monkeypatch, shape):
         tds = port_data.process_local_dataset(DataSet(ids, files, B, words, masks, is_train=True, shuffle=True,
                                                       seed=5), *got)
         assert (tds.batch_size, tds.num_batches, tds.count) == (jds.batch_size, jds.num_batches, jds.count)
+        block = slice(*getattr(tds, "block", (0, B)))
         for _ in range(3):
             for (jf, jw, jm), (tf, tw, tm) in zip(jds, tds, strict=True):
-                assert jf.tolist() == tf.tolist()
-                np.testing.assert_array_equal(jw, tw)
-                np.testing.assert_array_equal(jm, tm)
+                assert jf.tolist() == tf[block].tolist()
+                np.testing.assert_array_equal(jw, tw[block])
+                np.testing.assert_array_equal(jm, tm[block])
         jds.seek(4, 1)
         tds.seek(4, 1)
-        assert [f.tolist() for f, _, _ in jds] == [f.tolist() for f, _, _ in tds]
+        assert [f.tolist() for f, _, _ in jds] == [f[block].tolist() for f, _, _ in tds]
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_ranks_feed_the_single_process_batches_with_quarantined_rows(tmp_path, dp):
+    """Captions that fill the whole caption length are quarantined and
+    substituted by a healthy row of their batch.  The data ranks' blocks,
+    put together, are the single process's batches element for element
+    (images, captions, masks, files), the substitute taken from another
+    rank's block where the single process takes it; and the ranks' shared
+    ledger holds each quarantined row once, at its global position, as
+    the single process's does."""
+    import json
+
+    import cv2
+
+    from sat_tpu_torch.data.images import ImageLoader, PrefetchLoader
+    from sat_tpu_torch.resilience.quarantine import QuarantineManager
+
+    rng = np.random.default_rng(4)
+    n, B, T = 21, 8, 6
+    files = []
+    for i in range(n):
+        path = str(tmp_path / f"img{i}.jpg")
+        cv2.imwrite(path, rng.integers(0, 255, (20, 20, 3), dtype=np.uint8))
+        files.append(path)
+    words = rng.integers(1, 9, (n, T))
+    masks = (np.arange(T)[None, :] < rng.integers(2, T, (n, 1))).astype(np.float32)
+    masks[[2, 9, 10, 17]] = 1.0          # these fill the caption length
+
+    def run(ds, ledger, appends=True):
+        loader = PrefetchLoader(ds, ImageLoader(size=16), num_workers=2,
+                                quarantine=QuarantineManager(ledger, appends=appends))
+        return [b for _ in range(2) for b in loader]
+
+    one = run(DataSet(np.arange(n), files, B, words, masks, is_train=True, shuffle=True, seed=5),
+              str(tmp_path / "one.jsonl"))
+    ranks = []
+    for r in range(dp):
+        view = port_data.process_local_dataset(
+            DataSet(np.arange(n), files, B, words, masks, is_train=True, shuffle=True, seed=5), r, dp)
+        # a second model-axis peer of rank r feeds the same rows and writes nothing
+        run(port_data.process_local_dataset(
+            DataSet(np.arange(n), files, B, words, masks, is_train=True, shuffle=True, seed=5), r, dp),
+            str(tmp_path / "mesh.jsonl"), appends=False)
+        ranks.append(run(view, str(tmp_path / "mesh.jsonl")))
+    substituted = 0
+    for b, batch in enumerate(one):
+        for k in ("images", "word_idxs", "masks"):
+            np.testing.assert_array_equal(np.concatenate([rk[b][k] for rk in ranks]), batch[k])
+        assert [f for rk in ranks for f in rk[b]["files"]] == batch["files"]
+        substituted += len(batch["files"]) - len(set(batch["files"]))
+    assert substituted >= 4
+
+    def ledger(name):
+        with open(tmp_path / name) as f:
+            return sorted((e["reason"], tuple(e["pos"]), e["file"]) for e in map(json.loads, f))
+
+    assert ledger("mesh.jsonl") == ledger("one.jsonl")
+    assert len(ledger("one.jsonl")) == len(set(ledger("one.jsonl"))) >= 4
 
 
 # ---------------------------------------------------------------------------

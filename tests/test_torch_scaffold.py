@@ -28,7 +28,8 @@ def _port_sources():
 
 # the evidence tools, one a script of scripts/ (and the corpus they share)
 TOOLS = ("corpus", "quality_run", "continue_quality_run", "import_finetune_run", "export_reference",
-         "trim_model", "replay_exemplar", "merge_traces", "check_slo")
+         "trim_model", "replay_exemplar", "merge_traces", "check_slo", "fixtures", "analyze_postmortem",
+         "chaos_campaign", "cli_ranks", "vocab5000_run")
 
 
 def test_import_loads_neither_jax_nor_sat_tpu():
@@ -61,6 +62,21 @@ def test_import_loads_neither_jax_nor_sat_tpu():
     count, bad = out.stdout.strip().split(" ", 1)
     assert int(count) >= 30
     assert bad == "[]"
+
+
+def test_campaign_and_vocab5000_load_neither_jax_nor_sat_tpu():
+    """``import sat_tpu_torch.tools.chaos_campaign,
+    sat_tpu_torch.tools.vocab5000_run`` in a fresh interpreter: no jax,
+    flax, optax or sat_tpu module loads."""
+    code = (
+        "import sys\n"
+        "import sat_tpu_torch.tools.chaos_campaign, sat_tpu_torch.tools.vocab5000_run\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sat_tpu'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("module", ["telemetry.device", "telemetry.compile_report", "telemetry.promtext",

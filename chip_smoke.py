@@ -58,7 +58,10 @@ Phases, each fatal on failure:
    with ``X-Request-Id`` echoed and minted, a fast 500 "wedged",
    ``/healthz`` 503 "degraded" then "ok" after the re-warm, the same
    words as before; a ``/profile`` capture while 32 requests flow
-   holding the kernel's events (a second POST 409, a bad duration 400);
+   holding the kernel's events, opened by ``python -m
+   sat_tpu_torch.tools.profile_trace --live`` (a second call, the
+   tool's ``main`` in-process as the reply arrives, returns 1 with the
+   409; a bad duration 400);
    ``/stats`` percentiles, ``/metrics`` parsing with ``sat_up 1``, the
    metering identity (attributed device-ms within 5% of the busy
    spans); SIGTERM: exit 0, "serve drained cleanly", ``access.jsonl``
@@ -153,7 +156,14 @@ Phases, each fatal on failure:
    absolute, no kernel launched by a train step); ``fused_attend``
    refusing an input that requires grad on the card; an eval-loss step
    launching the kernel once a decode step, its metrics the CPU's
-   within 1e-5 relative.
+   within 1e-5 relative.  Then the train layer's run-health metrics on
+   the card at that size (``train_metrics_check``, the tests' fixture):
+   two epochs with a NaN step under ``anomaly_policy=rollback`` and a
+   poisoned caption row count one ``sentinel/anomalies`` and one
+   ``sentinel/rollbacks``, end at ``data/epoch`` 1 with the heartbeat's
+   ``epoch`` 1 and the quarantine record's epoch set; a run whose newest
+   checkpoint is rotted and then preempted resumes with one
+   ``ckpt/walkbacks``.
 16. train — the flagship model with ``Config``'s training defaults
    (dropout 0.5/0.3, Adam 1e-4, clip 5, batch 20, frozen CNN, async
    checkpoints) on the eval steady fixture with two captions an image
@@ -289,8 +299,9 @@ Phases, each fatal on failure:
    ``serve_wedge_continuous``, as three campaigns side by side: all pass.  From
    the kept workdirs: the supervised wedge's stack dump, exit 86, one
    restart from LAST_GOOD 3, LAST_GOOD 6, its 6.npz bitwise the
-   control's; the wedge's postmortem bundle; B2 launched on cuda:0 by the
-   serve wedge's child.
+   control's; the wedge's postmortem bundle; the poisoned run's
+   heartbeat ``epoch`` and its quarantine records' epochs set; B2
+   launched on cuda:0 by the serve wedge's child.
 30. vocab5000 — ``python -m sat_tpu_torch.tools.vocab5000_run --steps 8
    --eval-anns 8 --image-size 224`` over its 1700-image rich corpus: the
    vocabulary exactly 5000 words, 3 tensors sharded over ``model``, the
@@ -298,6 +309,14 @@ Phases, each fatal on failure:
    the card under gloo under 5e-2 at every record, finite scores both
    ways, B1 in the one-process eval and in every rank's; each arm's
    median step.
+31. multihost — ``python -m sat_tpu_torch.tools.multihost_demo --fleet
+   --procs 2`` at flagship widths in bf16 (``--extra-set``): two OS
+   processes started by the tool share the card under gloo, train 40
+   steps with worker 0 stalled ``MULTIHOST_SLOW_MS`` a step, checkpoint
+   and run the mesh eval with the attention panels.  rc 0 and the
+   banner; ``fleet.json`` with 2 hosts and process 0 the straggler (its
+   skew and each rank's own step printed; the stall above the other
+   rank's p95); B1 launched in each rank's eval.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
@@ -311,6 +330,13 @@ each phase's launches and no kernels or ok line.
 
 Fails when ``SAT_TORCH_DEVICE`` is set: every phase takes the card.
 
+``python3 chip_smoke.py --layouts OUT`` runs the build and the multihost
+demo in the five layouts of the JAX package's test (dp, cp, tp, 2x2 cp
+and 2x2 tp with loss parity) at flagship widths, into
+``OUT/result.json`` and ``OUT/summary.md``; ``--profile-trace OUT``
+runs the profile tool's default mode (25 flagship steps at batch 32)
+and summarizes its capture.
+
 ``python3 chip_smoke.py --bench`` runs only the build and a kernel
 bench: the kernel at every timed shape beside what bounds it there, the
 timing floor (a one-float memset), torch's sum over the same bytes, and
@@ -321,7 +347,9 @@ write back); and the host time to enqueue one call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
+import io
 import json
 import os
 import signal
@@ -1239,22 +1267,47 @@ def serve_ops_process(np, config, card: str, mode: str, tmp: str, bodies, wedge_
               f"echoed and minted; request {i_w} wedged: 500 in {wedge_ms:.0f} ms ({payload['error']!r}); "
               f"/healthz 503 degraded, then ok after a re-warm of {rewarm_s:.2f}s; image 0 after the "
               f"re-warm: bitwise its first reply", flush=True)
-        # a capture started (the reply comes once the profiler runs), 32
-        # requests sent into it, a second capture refused meanwhile
-        status, _, raw = http(port, "POST", "/profile?duration_ms=500")
+        # a capture started through the live mode of the profile tool (the
+        # reply comes once the profiler runs), 32 requests sent into it, a
+        # second capture through the tool refused meanwhile.  The tool's
+        # output is unbuffered, so its reply line arrives while the window
+        # is open, however slowly its interpreter exits; the second call
+        # is the tool's own main() in this process, since a second
+        # interpreter can take longer to start than the 500 ms window
+        from sat_tpu_torch.tools import profile_trace
+
+        live = ["--live", f"127.0.0.1:{port}", "500"]
+        live_err = tempfile.TemporaryFile(mode="w+")
+        first = subprocess.Popen([sys.executable, "-u", "-m", "sat_tpu_torch.tools.profile_trace", *live],
+                                 stdout=subprocess.PIPE, stderr=live_err, text=True, cwd=here)
+        reply = first.stdout.readline()
+        t_reply = time.perf_counter()
+        second_out = io.StringIO()
+        with contextlib.redirect_stdout(second_out):
+            second_rc = profile_trace.main(live)
+        second_ms = (time.perf_counter() - t_reply) * 1e3
         flow = {}
         flow_thread = threading.Thread(target=lambda: flow.update(zip(("lead", "rest"), post_all(
             port, bodies[4:35], lead=bodies[35]))))
         flow_thread.start()
-        second, _, _ = http(port, "POST", "/profile?duration_ms=500")
+        rest = first.stdout.read()  # the tool's own HTTP timeout bounds this
+        first.wait(timeout=120)
+        live_err.seek(0)
+        first_err = live_err.read()
+        live_err.close()
         bad, _, _ = http(port, "POST", "/profile?duration_ms=soon")
         flow_thread.join(timeout=600)
-        if status != 200 or second != 409 or bad != 400:
-            fail(f"{where}: POST /profile gave {status}, then {second} (want 409), bad duration {bad} (want 400)")
+        said = (reply + rest).strip().splitlines()
+        second_said = second_out.getvalue().strip().splitlines()
+        if first.returncode != 0 or said[-1:] != ["profiler window open for 500 ms"] or second_rc != 1 \
+                or second_said[-1:] != ["capture already in progress (409)"] or bad != 400:
+            fail(f"{where}: profile_trace --live gave rc {first.returncode} {reply + rest!r} {first_err[-2000:]!r}, "
+                 f"then rc {second_rc} {second_out.getvalue()!r} {second_ms:.0f} ms after the first reply "
+                 f"(want 1, the 409), a bad duration {bad} (want 400)")
         for st, pl, _ in [flow["lead"]] + flow["rest"]:
             if st != 200:
                 fail(f"{where}: a request of the flow got {st}: {pl}")
-        trace = os.path.join(json.loads(raw)["profile_dir"], "trace.json")
+        trace = os.path.join(json.loads(said[0])["profile_dir"], "trace.json")
         t_wait = time.perf_counter()
         while time.perf_counter() - t_wait < 60:
             try:
@@ -1271,9 +1324,11 @@ def serve_ops_process(np, config, card: str, mode: str, tmp: str, bodies, wedge_
             fail(f"{where}: the /profile capture holds {len(kernels)} kernel events, {len(ours)} of fused_attend")
         names = sorted({e["name"][e["name"].index("fused_attend_kernel<"):].split(">")[0] + ">" for e in ours})
         busy = sum(e.get("dur", 0) for e in kernels) / 1e3
-        print(f"{where} profile capture (500 ms while 32 requests flowed): {len(kernels)} kernel events, "
-              f"{len(ours)} of fused_attend ({names}; MASKED={body_name} expected), device busy "
-              f"{busy:.1f} ms; a second POST 409, a bad duration 400", flush=True)
+        print(f"{where} profile capture (python -m sat_tpu_torch.tools.profile_trace --live, 500 ms while 32 "
+              f"requests flowed): {len(kernels)} kernel events, {len(ours)} of fused_attend ({names}; "
+              f"MASKED={body_name} expected), device busy {busy:.1f} ms; a second call {second_ms:.0f} ms after the "
+              f"first reply returned 1 with the 409, "
+              f"a bad duration 400", flush=True)
         if not any(n.split(", ")[1] == body_name for n in names):
             fail(f"{where}: the capture has no fused_attend_kernel<..., {body_name}, ...> events: {names}")
         # artifacts and endpoints
@@ -2735,6 +2790,91 @@ def train_reference_phase(torch, np, fa):
           f"param abs err {param_err:.3e}, eval-loss rel err {eval_err:.3e} (tol 1e-5); losses "
           f"{[round(x, 6) for x in losses['cuda']]}; eval-loss step launched fused_attend "
           f"{config.max_caption_length} times (T); the kernel refused a grad-requiring input", flush=True)
+
+
+class fault_env:
+    """``SAT_FI_*`` knobs in this process's environment for a block (the
+    train loop reads them when it starts)."""
+
+    def __init__(self, **knobs):
+        self.knobs = {f"SAT_FI_{k}": str(v) for k, v in knobs.items()}
+
+    def __enter__(self):
+        os.environ.update(self.knobs)
+
+    def __exit__(self, *exc):
+        for k in self.knobs:
+            os.environ.pop(k, None)
+
+
+def train_metrics_check(np, tmp: str, card: str) -> None:
+    """The train layer's run-health metrics on the card, in this process at
+    the small float32 size on the tests' COCO fixture (24 captions, 6 steps
+    an epoch): two epochs under ``anomaly_policy=rollback`` with
+    SAT_FI_NAN_AT_STEP=5 and SAT_FI_BAD_CAPTION_AT=30 count one
+    ``sentinel/anomalies`` and one ``sentinel/rollbacks`` (in the registry
+    and in the last ``telemetry.jsonl`` row), end with ``data/epoch`` 1 and
+    a heartbeat ``epoch`` of 1, and the quarantined caption's record
+    carries its epoch; then a run whose 4.npz is rotted
+    (SAT_FI_CORRUPT_CKPT_STEP=4) and preempted at step 5 resumes from
+    2.npz with one ``ckpt/walkbacks``."""
+    from sat_tpu_torch import runtime, telemetry
+    from sat_tpu_torch.resilience.faultinject import SimulatedPreemption
+    from sat_tpu_torch.resilience.quarantine import ledger_path_for
+    from sat_tpu_torch.telemetry import spans
+    from sat_tpu_torch.tools.fixtures import make_coco_fixture
+    from sat_tpu_torch.train.checkpoint import restore_checkpoint
+
+    where = "train metrics"
+    root = os.path.join(tmp, "train_metrics")
+    base = make_coco_fixture(os.path.join(root, "fixture"))["config"].replace(
+        image_size=32, dim_embedding=16, num_lstm_units=16, dim_initialize_layer=16, dim_attend_layer=16,
+        dim_decode_layer=32, compute_dtype="float32", log_every=1, num_data_workers=2, save_period=2,
+    )
+    before = spans._impl   # the registry the earlier phases left, put back below
+    try:
+        cfg = base.replace(save_dir=os.path.join(root, "rollback", "models"),
+                           summary_dir=os.path.join(root, "rollback", "summary"), anomaly_policy="rollback",
+                           num_epochs=2, save_period=4, telemetry=True, heartbeat_interval=0.05)
+        with fault_env(NAN_AT_STEP=5, BAD_CAPTION_AT=30):
+            state = runtime.train(cfg)
+        tel = telemetry.get()
+        counters, gauges = tel.counters(), tel.gauges()
+        tdir = os.path.join(cfg.summary_dir, "telemetry")
+        with open(os.path.join(tdir, "telemetry.jsonl")) as f:
+            last = [json.loads(line) for line in f if line.strip()][-1]["counters"]
+        with open(os.path.join(tdir, "heartbeat.json")) as f:
+            beat = json.load(f)
+        with open(ledger_path_for(cfg)) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        got = {k: (counters.get(k, 0), last.get(k, 0)) for k in ("sentinel/anomalies", "sentinel/rollbacks")}
+        if int(state.step) != 12 or got != {"sentinel/anomalies": (1, 1), "sentinel/rollbacks": (1, 1)} or \
+                gauges.get("data/epoch") != 1 or beat.get("epoch") != 1 or not records or \
+                any(r.get("epoch") is None for r in records):
+            fail(f"{where}: step {int(state.step)}, (registry, telemetry.jsonl) {got}, data/epoch "
+                 f"{gauges.get('data/epoch')}, heartbeat epoch {beat.get('epoch')}, quarantine records {records}")
+
+        cfg = base.replace(save_dir=os.path.join(root, "walkback", "models"),
+                           summary_dir=os.path.join(root, "walkback", "summary"))
+        try:
+            with fault_env(CORRUPT_CKPT_STEP=4, DIE_AT_STEP=5):
+                runtime.train(cfg)
+        except SimulatedPreemption:
+            pass
+        else:
+            fail(f"{where}: SAT_FI_DIE_AT_STEP=5 did not preempt the run")
+        tel = telemetry.enable()
+        restored, _ = restore_checkpoint(runtime.setup_train_state(cfg), save_dir=cfg.save_dir)
+        walkbacks = tel.counters().get("ckpt/walkbacks", 0)
+        if int(restored.step) != 2 or walkbacks != 1:
+            fail(f"{where}: the resume restored step {int(restored.step)} with ckpt/walkbacks {walkbacks}")
+    finally:
+        spans._impl = before
+    print(f"{where} on {card}: 2 epochs with a NaN step 5 under anomaly_policy=rollback and caption row 30 "
+          f"poisoned: sentinel/anomalies 1, sentinel/rollbacks 1 (registry and telemetry.jsonl), data/epoch "
+          f"{gauges['data/epoch']}, heartbeat epoch {beat['epoch']}, quarantine record epochs "
+          f"{[r['epoch'] for r in records]} (steps {[r['step'] for r in records]}); 4.npz rotted, preempted at "
+          f"5: the resume walked back to 2.npz with ckpt/walkbacks {walkbacks}", flush=True)
 
 
 TRAIN_STEPS, TRAIN_SAVE, TRAIN_LOG = 30, 10, 5
@@ -4630,6 +4770,15 @@ def chaos_phase(np, tmp: str, card: str):
           f"(phase {manifests[0].get('phase')!r})", flush=True)
     if differing:
         fail(f"{where}: the supervised run's 6.npz is not bitwise its control's: {differing[:5]}")
+    wd = workdirs["poison_quarantine_replay"]
+    with open(os.path.join(wd, "poison", "summary", "telemetry", "heartbeat.json")) as f:
+        beat = json.load(f)
+    with open(os.path.join(wd, "poison_ledger.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if beat.get("epoch") is None or not records or any(r.get("epoch") is None for r in records):
+        fail(f"chaos poison_quarantine_replay: heartbeat epoch {beat.get('epoch')}, quarantine records {records}")
+    print(f"chaos poison_quarantine_replay on {card}: heartbeat epoch {beat['epoch']}, the quarantine "
+          f"records' epochs {[r['epoch'] for r in records]}", flush=True)
     serve = reports["serve_wedge_continuous"]
     if serve["serve_device"] != "cuda:0" or serve["masked_launches"] <= 0 or serve["launches"] != 0:
         fail(f"chaos serve_wedge_continuous: device {serve['serve_device']}, B1 {serve['launches']}, "
@@ -4685,6 +4834,187 @@ def vocab5000_phase(np, tmp: str, card: str):
     if len(ranks) != 8 or not all(n > 0 for n in ranks):
         fail(f"{where}: the mesh eval's ranks launched B1 {ranks}")
     return tally["launches"] + sum(ranks)
+
+
+# the demo's flagship: VGG16 at 224 px, the 512 widths, bf16 compute
+MULTIHOST_SETS = FLAGSHIP_SETS + ("compute_dtype=bfloat16",)
+# worker 0's stall a step under --fleet.  Two ranks time-slice the card and
+# their collectives keep them in lockstep, so the fleet plane reads each
+# rank's own step (its wall time less its waits on the other); with two
+# ranks the 1.5x factor over their median needs the slowed rank at more
+# than three times the other's p95, so the stall is several times the own
+# step the phase measures (checked below; 127 / 172 ms p50 / p95 at 800).
+MULTIHOST_SLOW_MS = 600
+
+
+def run_multihost(root: str, args, timeout: int):
+    """``python -m sat_tpu_torch.tools.multihost_demo`` in its own session
+    (a timeout kills its ranks too); (rc, stdout, stderr, seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sat_tpu_torch.tools.multihost_demo", "--root", root,
+         "--port", str(free_base_port(3)), *args],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"multihost_demo {' '.join(args)}: no end within {timeout}s:\n{out[-3000:]}\n{err[-2000:]}")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def multihost_tallies(root: str, procs: int):
+    tallies = []
+    for r in range(procs):
+        with open(os.path.join(root, f"tally_p{r}.json")) as f:
+            tallies.append(json.load(f))
+    return tallies
+
+
+def multihost_phase(tmp: str, card: str):
+    """``python -m sat_tpu_torch.tools.multihost_demo --fleet --procs 2`` at
+    flagship widths (``--extra-set``, bf16): two OS processes started by
+    the tool share ``cuda:0`` under gloo, train 40 steps (worker 0 slowed
+    by ``--slow-ms``), checkpoint, and run the mesh eval with the
+    cross-rank gather and the attention panels.  rc 0 and the banner;
+    fleet.json with 2 hosts and process 0 the straggler (its skew and each
+    rank's own step printed; the stall at least the other rank's p95 own
+    step); rank 0 on the shared card; B1 launched in each rank's eval.
+    Returns the ranks' B1 launches."""
+    where = "multihost"
+    root = os.path.join(tmp, "multihost")
+    sets = [x for w in MULTIHOST_SETS for x in ("--extra-set", w)]
+    args = ["--fleet", "--procs", "2", "--slow-ms", str(MULTIHOST_SLOW_MS), "--join-timeout", "300", *sets]
+    rc, out, err, wall = run_multihost(root, args, timeout=400)
+    banner = [line for line in out.splitlines() if line.startswith("MULTIHOST OK")]
+    if rc != 0 or banner != [line for line in banner if "MULTIHOST OK (data-parallel): 2 processes" in line] \
+            or len(banner) != 1:
+        fail(f"{where}: rc {rc}, banner {banner}:\n{out[-4000:]}\n{err[-2000:]}")
+    with open(os.path.join(root, "fleet", "fleet.json")) as f:
+        doc = json.load(f)
+    verdict, hosts = doc.get("straggler", {}), {h["process_index"]: h for h in doc.get("hosts", [])}
+    if doc.get("hosts_reporting") != 2 or not verdict.get("verdict") or verdict.get("process_index") != 0:
+        fail(f"{where}: fleet.json hosts {doc.get('hosts_reporting')}, straggler {verdict}")
+    if not hosts[1]["step_p95_ms"] < MULTIHOST_SLOW_MS:
+        fail(f"{where}: --slow-ms {MULTIHOST_SLOW_MS} is under rank 1's own step p95 {hosts[1]['step_p95_ms']} ms")
+    with open(os.path.join(root, "worker_p0.log")) as f:
+        log0 = f.read()
+    if "backend gloo, rank 0 on cuda:0 (the host's one card" not in log0:
+        fail(f"{where}: rank 0 did not report the shared card under gloo:\n{log0[-2000:]}")
+    tallies = multihost_tallies(root, 2)
+    launches = [t["launches"] for t in tallies]
+    if not all(n > 0 for n in launches) or any(t["masked_launches"] for t in tallies):
+        fail(f"{where}: the ranks' evals launched B1 {launches}, B2 {[t['masked_launches'] for t in tallies]}")
+    print(f"{where} on {card}: python -m sat_tpu_torch.tools.multihost_demo {' '.join(args)} exited 0 in "
+          f"{wall:.1f}s: {banner[0]}", flush=True)
+    print(f"{where} fleet on {card}: straggler p0 at {verdict['skew']}x the median (factor "
+          f"{verdict['factor']}); own step p50/p95 rank 0 {hosts[0]['step_p50_ms']}/{hosts[0]['step_p95_ms']} ms "
+          f"(with the {MULTIHOST_SLOW_MS} ms stall), rank 1 {hosts[1]['step_p50_ms']}/{hosts[1]['step_p95_ms']} "
+          f"ms; dispatch mean {hosts[0]['dispatch_ms']}/{hosts[1]['dispatch_ms']} ms; train "
+          f"{[round(t['train_s'], 2) for t in tallies]} s, eval {[round(t['eval_s'], 2) for t in tallies]} s; "
+          f"B1 launches in the ranks' evals {launches}", flush=True)
+    return sum(launches)
+
+
+# the five layouts of the JAX package's multihost test, at full width, then
+# the 2x2 context-parallel one with dropout off and in float32: its masks on
+# the sharded grid fold the rank in (as the JAX package's do), so only with
+# dropout off does it draw the one-process control's masks
+MULTIHOST_LAYOUTS = (("dp", []), ("cp", ["--cp"]), ("tp", ["--tp"]),
+                     ("dp_x_cp_4proc", ["--mesh", "2,2", "--cp", "--check-loss-parity"]),
+                     ("dp_x_tp_4proc", ["--mesh", "2,2", "--tp", "--check-loss-parity"]),
+                     ("dp_x_cp_4proc_dropout_off", ["--mesh", "2,2", "--cp", "--check-loss-parity",
+                                                    "--extra-set", "fc_drop_rate=0.0",
+                                                    "--extra-set", "lstm_drop_rate=0.0"]),
+                     ("dp_x_cp_4proc_float32", ["--mesh", "2,2", "--cp", "--check-loss-parity",
+                                                "--extra-set", "compute_dtype=float32"]))
+
+
+def multihost_layouts(out_dir: str, card: str) -> int:
+    """``python3 chip_smoke.py --layouts OUT``: the demo in each of the five
+    layouts at flagship widths (bf16) on the card, each run's banner,
+    loss parity, seconds and the ranks' B1 launches into
+    ``OUT/result.json`` and ``OUT/summary.md``."""
+    import torch
+
+    os.makedirs(out_dir, exist_ok=True)
+    sets = [x for w in MULTIHOST_SETS for x in ("--extra-set", w)]
+    rows, ok = [], True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_layouts_") as tmp:
+        for name, extra in MULTIHOST_LAYOUTS:
+            root = os.path.join(tmp, name)
+            # the layout's own --extra-set after the flagship's, so it wins
+            rc, out, err, wall = run_multihost(root, ["--join-timeout", "500", *sets, *extra], timeout=700)
+            procs = 4 if "--mesh" in extra else 2
+            lines = out.splitlines()
+            logs = []
+            for r in range(procs):
+                with open(os.path.join(root, f"worker_p{r}.log")) as f:
+                    logs.append(f.read())
+            row = {"layout": name, "args": extra, "rc": rc, "seconds": round(wall, 1),
+                   "banner": next((x for x in lines if x.startswith("MULTIHOST OK")), None),
+                   "loss_parity": next((x for x in lines if x.startswith(("loss parity", "FAIL"))), None),
+                   "tp_verified_ranks": sum("TP verified" in log for log in logs)}
+            if rc == 0:
+                row["b1_launches"] = [t["launches"] for t in multihost_tallies(root, procs)]
+                with open(os.path.join(root, "scores_p0.json")) as f:
+                    row["scores"] = json.load(f)
+            else:
+                ok = False
+                row["tail"] = (out[-2000:] + err[-1500:])
+            print(f"multihost layout {name} on {card}: {json.dumps(row)}", flush=True)
+            rows.append(row)
+    result = {"device": torch.cuda.get_device_name(0), "card": card, "extra_set": list(MULTIHOST_SETS),
+              "layouts": rows}
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    md = [f"# multihost_demo, five layouts at full width on {card}", "",
+          "`python3 chip_smoke.py --layouts OUT`: `python -m sat_tpu_torch.tools.multihost_demo` with "
+          f"`--extra-set {' '.join(MULTIHOST_SETS)}` (the ranks share cuda:0 under gloo).", "",
+          "| layout | args | rc | seconds | banner | loss parity | ranks with TP verified | B1 launches (ranks' evals) |",
+          "|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        md.append(f"| {r['layout']} | `{' '.join(r['args'])}` | {r['rc']} | {r['seconds']} | {r['banner']} | "
+                  f"{r['loss_parity'] or '-'} | {r['tp_verified_ranks']} | {r.get('b1_launches')} |")
+    with open(os.path.join(out_dir, "summary.md"), "w") as f:
+        f.write("\n".join(md) + "\n")
+    return 0 if ok else 1
+
+
+def profile_trace_default(out_dir: str, card: str) -> int:
+    """``python3 chip_smoke.py --profile-trace OUT``: the profile tool's
+    default mode on the card (``python -m sat_tpu_torch.tools.profile_trace
+    OUT``: the quality corpus, 25 flagship train steps at batch 32, the
+    window over steps 8-12), then the capture summarized: its events, the
+    train step's backward events, the kernel events and the busiest
+    kernels, and that B1 never ran in a train step."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sat_tpu_torch.tools.profile_trace", out_dir],
+                          cwd=here, capture_output=True, text=True, timeout=1000)
+    wall = time.perf_counter() - t0
+    print(f"profile_trace on {card}: exit {proc.returncode} in {wall:.1f}s: {proc.stdout.strip()}", flush=True)
+    traces = sorted(glob.glob(os.path.join(out_dir, "profile_run_trace", "*", "trace.json")))
+    if proc.returncode != 0 or len(traces) != 1 or not os.path.exists(os.path.join(out_dir, "profile_done.txt")):
+        with open(os.path.join(out_dir, "profile_train.log")) as f:
+            print(f.read()[-3000:], flush=True)
+        return 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = trace_kernels(traces[0])
+    backward = sum(1 for e in events if str(e.get("name", "")).startswith("autograd::engine::evaluate_function"))
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + e.get("dur", 0) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ours = [e for e in kernels if "fused_attend_kernel<" in e["name"]]
+    span_ms = (max(e["ts"] + e.get("dur", 0) for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
+    print(f"profile_trace capture on {card}: {len(events)} events, {backward} backward (train step) events, "
+          f"{len(kernels)} kernel events busy {sum(by_name.values()):.1f} ms over {span_ms:.1f} ms of kernels, "
+          f"fused_attend {len(ours)}; busiest kernels (ms) {[(n, round(ms, 2)) for n, ms in top]}", flush=True)
+    return 0 if backward > 0 and kernels and not ours else 1
 
 
 def memory_lead(torch, card: str) -> None:
@@ -4792,6 +5122,10 @@ def phases(torch, np, fa, card: str):
         served(np, config)
         return serve_planes_phase(torch, np, fa, config, card, tmp)
 
+    def train_reference(tmp):
+        train_reference_phase(torch, np, fa)
+        train_metrics_check(np, tmp, card)
+
     def quality(tmp):
         got["quality"] = quality_phase(torch, np, tmp, card)
         return got["quality"]["launches"]
@@ -4813,7 +5147,7 @@ def phases(torch, np, fa, card: str):
         ("serve planes", (), planes),
         ("route batch", (), route("batch")),
         ("route continuous", (), route("continuous")),
-        ("train reference", (), lambda tmp: train_reference_phase(torch, np, fa)),
+        ("train reference", (), train_reference),
         ("train", ("eval steady",),
          lambda tmp: train_phase(np, train_config(os.path.join(tmp, "steady"), tmp), card)),
         ("train steady", ("train",), train_steady),
@@ -4831,6 +5165,7 @@ def phases(torch, np, fa, card: str):
         ("replay", ("quality",), lambda tmp: replay_phase(torch, np, got["quality"], card)),
         ("chaos", (), lambda tmp: chaos_phase(np, tmp, card)),
         ("vocab5000", (), lambda tmp: vocab5000_phase(np, tmp, card)),
+        ("multihost", (), lambda tmp: multihost_phase(tmp, card)),
     ]
 
 
@@ -4838,6 +5173,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", action="store_true", help="build and kernel bench only")
     ap.add_argument("--only", default="", help="comma-separated phases to run (with what they need)")
+    ap.add_argument("--layouts", default="", metavar="OUT",
+                    help="run multihost_demo in its five layouts at full width, summary into OUT")
+    ap.add_argument("--profile-trace", default="", metavar="OUT",
+                    help="run profile_trace's default mode into OUT and summarize its capture")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sat_tpu_torch")):
@@ -4874,6 +5213,10 @@ def main() -> int:
     if args.bench:
         bench_phase(torch, fa)
         return 0
+    if args.layouts:
+        return multihost_layouts(os.path.abspath(args.layouts), card)
+    if args.profile_trace:
+        return profile_trace_default(os.path.abspath(args.profile_trace), card)
     plan = phases(torch, np, fa, card)
     names = [name.replace(" ", "_") for name, _, _ in plan]
     chosen = set(names)
@@ -4912,7 +5255,7 @@ def main() -> int:
     mesh_ranks_b1 = got["mesh train"][0] + got["vocab parallel"]
     mesh_b1 = mesh_ranks_b1 + got["mesh train"][1]
     quality_b1, (replay_b1, replay_b2) = got["quality"], got["replay"]
-    chaos_b2, v5000_b1 = got["chaos"], got["vocab5000"]
+    chaos_b2, v5000_b1, multihost_b1 = got["chaos"], got["vocab5000"], got["multihost"]
 
     for B, N, what in ((60, 196, "eval: batch 20 x beam 3"), (20, 196, "eval-loss step: batch 20"),
                        (96, 49, "ResNet50 bucket 32 x beam 3"), (60, 49, "ResNet50 eval: batch 20 x beam 3")):
@@ -4921,7 +5264,7 @@ def main() -> int:
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     vgg_b1 = (launches + ops_launches + eval_launches + test_launches + eval_loss_launches
-              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1 + v5000_b1)
+              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1 + v5000_b1 + multihost_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
@@ -4929,7 +5272,8 @@ def main() -> int:
           f"step {eval_loss_launches}, serve planes {planes_b1}, route replicas {route_b1}, mesh evals in every "
           f"rank of the data- and vocab-parallel launches {mesh_ranks_b1}, their one-process reference "
           f"{mesh_b1 - mesh_ranks_b1}, quality evals {quality_b1}, replay serving and tool {replay_b1}, "
-          f"vocab5000 evals (one process and eight ranks) {v5000_b1}; "
+          f"vocab5000 evals (one process and eight ranks) {v5000_b1}, multihost_demo evals (two ranks) "
+          f"{multihost_b1}; "
           f"ResNet50 batch "
           f"serve {r50_launches}, eval "
           f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
@@ -4959,6 +5303,7 @@ def main() -> int:
         "launches_mesh_ranks": mesh_ranks_b1,
         "launches_quality_and_replay": quality_b1 + replay_b1,
         "launches_vocab5000": v5000_b1,
+        "launches_multihost": multihost_b1,
         "resnet50": {"shape": "B=96 N=49 da=512 D=2048 bfloat16", "ms": r50_row["ms"],
                      "plain_ms": r50_row["plain_ms"], "bound_ms": r50_row["bound_ms"],
                      "bound_by": r50_row["bound_by"]},

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import telemetry
 from ..config import Config
 from ..utils.fileio import atomic_write
 from .coco import CocoCaptions
@@ -61,6 +62,7 @@ class DataSet:
 
     def _set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        telemetry.gauge("data/epoch", epoch)
         rng = np.random.default_rng((self.seed, epoch))
         self.idxs = list(rng.permutation(self.count)) if self.shuffle else list(range(self.count))
         # the padding of the final partial batch draws from the same rng

@@ -30,6 +30,8 @@ the global array.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -40,12 +42,36 @@ SUM = dist.ReduceOp.SUM
 MAX = dist.ReduceOp.MAX
 MIN = dist.ReduceOp.MIN
 
+# Wall time this process has spent blocked inside collectives (ns).  Every
+# collective here blocks the host until the slowest rank arrives, so a
+# mesh's ranks all show the straggler's step time; the train loop takes
+# this out of each step to get the rank's own time, which the fleet
+# plane's straggler verdict reads (the JAX package's host step time leaves
+# the wait out by itself: its dispatch is asynchronous).
+_BLOCKED_NS = [0]
+
+
+def blocked_ns() -> int:
+    """Nanoseconds spent in :func:`blocking` sections so far."""
+    return _BLOCKED_NS[0]
+
+
+@contextlib.contextmanager
+def blocking():
+    """Count the enclosed collective's wall time into :func:`blocked_ns`."""
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        _BLOCKED_NS[0] += time.perf_counter_ns() - t0
+
 
 def all_reduce_(x: torch.Tensor, group, op=SUM) -> torch.Tensor:
     """In-place ``all_reduce`` of ``x`` over ``group`` (no autograd);
     returns ``x``.  The identity when ``group`` is None."""
     if group is not None:
-        dist.all_reduce(x, op=op, group=group)
+        with blocking():
+            dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -146,7 +172,8 @@ def gather_objects(obj: Any, mesh) -> List[Any]:
     if mesh.host_group is None:
         return [obj]
     out: List[Optional[Any]] = [None] * mesh.world
-    dist.all_gather_object(out, obj, group=mesh.host_group)
+    with blocking():
+        dist.all_gather_object(out, obj, group=mesh.host_group)
     return out
 
 

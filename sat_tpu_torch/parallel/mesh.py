@@ -201,8 +201,11 @@ def sync_processes(tag: str) -> None:
     """A barrier over every rank (no-op in a single process).  ``tag``
     names the place in a failure's message."""
     if world_size() > 1:
+        from .collectives import blocking
+
         try:
-            dist.barrier(group=_host_group())
+            with blocking():
+                dist.barrier(group=_host_group())
         except RuntimeError as e:
             raise RuntimeError(f"sat_tpu_torch: barrier {tag!r} failed: {e}") from e
 

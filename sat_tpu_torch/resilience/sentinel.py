@@ -34,6 +34,8 @@ import math
 import sys
 from typing import Dict, Optional
 
+from .. import telemetry
+
 
 # A diverging run that keeps tripping rollback would otherwise loop
 # forever restoring the same checkpoint; after this many restores the
@@ -116,6 +118,7 @@ class AnomalySentinel:
             self.healthy = True
             return "ok"
         self.anomalies += 1
+        telemetry.count("sentinel/anomalies")
         self.healthy = False
         self.last_reason = reason
         action = self.policy
@@ -129,6 +132,7 @@ class AnomalySentinel:
                 )
                 return "warn"
             self.rollbacks += 1
+            telemetry.count("sentinel/rollbacks")
         print(
             f"sat_tpu_torch: ANOMALY at step {step}: {reason} (policy={action})",
             file=sys.stderr,

@@ -176,8 +176,11 @@ def _stop_agreed(mesh, requested: bool) -> bool:
         return requested
     import torch.distributed as dist
 
+    from .parallel.collectives import blocking
+
     flag = torch.tensor([int(requested)], dtype=torch.int32)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.host_group)
+    with blocking():
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.host_group)
     return bool(flag.item())
 
 
@@ -189,9 +192,12 @@ def _fleet_gather(mesh, vec):
         return None
     import torch.distributed as dist
 
+    from .parallel.collectives import blocking
+
     try:
         rows = [torch.zeros(len(vec), dtype=torch.float64) for _ in range(mesh.world)]
-        dist.all_gather(rows, torch.from_numpy(np.asarray(vec, np.float64)), group=mesh.host_group)
+        with blocking():
+            dist.all_gather(rows, torch.from_numpy(np.asarray(vec, np.float64)), group=mesh.host_group)
         return torch.stack(rows).numpy()
     except RuntimeError:
         return None
@@ -685,6 +691,8 @@ def train(
         sync_processes("shard_state")
         state = shard_train_state(state, placement_config(config), mesh)
         dataset = process_local_dataset(dataset, *mesh_data_shard(mesh))
+    from .parallel.collectives import blocked_ns
+
     train_step = make_train_step(config, mesh)
     loader = make_loader(config, dataset, mesh)
     retry.configure(config.io_retries, config.io_retry_base_s)
@@ -815,6 +823,7 @@ def train(
                 )
                 feed = device_prefetch(loader, dev)
                 step_t0 = time.perf_counter_ns()
+                blocked_t0 = blocked_ns()
                 try:
                     for batch in _timed_iter(_watched_iter(feed, wd, "data_wait"), tel, "train/data_wait"):
                         with wd.phase("step"):
@@ -876,6 +885,11 @@ def train(
                             bar.update()
                             now = time.perf_counter_ns()
                             tel.record("train/step", step_t0, now - step_t0)
+                            if fleet_plane is not None and mesh is not None:
+                                # the rank's own time: the step less its waits on peers
+                                blocked = blocked_ns()
+                                fleet_plane.note_step(now - step_t0 - (blocked - blocked_t0))
+                                blocked_t0 = blocked
                             step_t0 = now
                 finally:
                     feed.close()
@@ -1373,6 +1387,7 @@ def evaluate(
     model_file: Optional[str] = None,
     prepared: Optional[Tuple[Any, DataSet, Vocabulary]] = None,
     device=None,
+    every_rank: bool = False,
 ) -> Dict[str, float]:
     """Scored beam-search decoding over the eval split: results.json and
     BLEU-1..4 / METEOR / ROUGE_L / CIDEr.
@@ -1381,7 +1396,10 @@ def evaluate(
     :func:`prepare_eval_data`, so a sweep reads the captions once.
 
     On a mesh every rank decodes and renders its share of the images;
-    rank 0 writes results.json and scores, the other ranks return {}."""
+    rank 0 writes results.json and scores, the other ranks return {} —
+    or, with ``every_rank``, score their own copy of the gathered
+    results, as every host of the JAX package does (the multi-host demo
+    holds the ranks' scores equal)."""
     mesh = mesh_for(config)
     dev = resolve_device(device)
     if prepared is None:
@@ -1404,7 +1422,7 @@ def evaluate(
         _save_attention_panels(_local_render_rows(results, mesh), config.eval_result_dir)
         if primary:
             _export_attention_artifacts(results, config.eval_result_dir)
-    if not primary:
+    if not (primary or every_rank):
         return {}
     coco_res = coco.load_results(payload)
     return CocoEvalCap(coco, coco_res, eval_data=dataset).evaluate()

@@ -22,6 +22,7 @@ the run.  The module imports no torch.
 
 from __future__ import annotations
 
+import collections
 import glob
 import json
 import os
@@ -285,13 +286,32 @@ class FleetPlane:
         self._host = host or socket.gethostname()
         self._warned = False
         self._last_step: Optional[int] = None
+        # the rank's own step times (ns) on a mesh, noted by the train loop
+        self._own_ns: collections.deque = collections.deque(maxlen=4096)
+        # a fleet_dir named for this run may not exist yet; a failure here
+        # degrades at the first sidecar write, as any write failure does
+        try:
+            os.makedirs(fleet_dir, exist_ok=True)
+        except OSError:
+            pass
 
     # -- local side --------------------------------------------------------
+
+    def note_step(self, own_ns: int) -> None:
+        """One step's own time on a mesh: its wall time less the time it
+        spent blocked in collectives.  The ranks' collectives block every
+        one of them until the slowest arrives, so their ``train/step``
+        spans are equal and cannot name a straggler; once steps are noted,
+        the sidecar's ``step_p50_ms``/``step_p95_ms`` come from these."""
+        self._own_ns.append(int(own_ns))
 
     def local_row(self, step: Optional[int] = None) -> Dict:
         """The sidecar payload: FLEET_SCALARS plus identity."""
         tel = self._tel
-        p50, p95 = _span_percentiles_ms(tel, "train/step")
+        if self._own_ns:
+            p50, p95 = (float(v) / 1e6 for v in np.percentile(np.asarray(self._own_ns), (50, 95)))
+        else:
+            p50, p95 = _span_percentiles_ms(tel, "train/step")
         quarantined = tel.gauges().get(
             "data/quarantined_total", tel.counters().get("data/quarantined", 0)
         )

@@ -302,6 +302,7 @@ def walk_back(save_dir: str, expect: Optional[dict]) -> Tuple[Dict[str, np.ndarr
             except (OSError, ValueError) as e:
                 reason = f"load failed: {e}"
         rejected.append(f"{os.path.basename(path)} ({reason})")
+        telemetry.count("ckpt/walkbacks")
         print(
             f"sat_tpu_torch: checkpoint {path} rejected ({reason}); walking back",
             file=sys.stderr,

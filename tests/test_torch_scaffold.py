@@ -29,7 +29,7 @@ def _port_sources():
 # the evidence tools, one a script of scripts/ (and the corpus they share)
 TOOLS = ("corpus", "quality_run", "continue_quality_run", "import_finetune_run", "export_reference",
          "trim_model", "replay_exemplar", "merge_traces", "check_slo", "fixtures", "analyze_postmortem",
-         "chaos_campaign", "cli_ranks", "vocab5000_run")
+         "chaos_campaign", "cli_ranks", "vocab5000_run", "multihost_demo", "profile_trace")
 
 
 def test_import_loads_neither_jax_nor_sat_tpu():
@@ -123,6 +123,16 @@ _PARENTS = {
                      "supervisor.supervise = lambda argv, **kw: 0\n"
                      "assert cli.main(['--phase', 'train', '--supervise', '--watchdog', '1']) == 0\n"
                      "assert cli.main(['--phase', 'serve', '--supervise']) == 0",
+    # the modules that emit the train layer's sentinel and epoch metrics
+    "train_metric_modules": "import sat_tpu_torch.resilience.sentinel, sat_tpu_torch.data.dataset\n"
+                            "from sat_tpu_torch.resilience.sentinel import AnomalySentinel\n"
+                            "assert AnomalySentinel('rollback').check(1, {'loss': float('nan')}) == 'rollback'",
+    # the live capture only speaks HTTP (port 1: nothing listens, exit 1)
+    "profile_trace_live": "import contextlib, io\n"
+                          "from sat_tpu_torch.tools import profile_trace\n"
+                          "with contextlib.redirect_stdout(io.StringIO()) as said:\n"
+                          "    assert profile_trace.main(['--live', '127.0.0.1:1', '100']) == 1\n"
+                          "assert 'unreachable' in said.getvalue()",
 }
 
 

@@ -291,7 +291,22 @@ Phases, each fatal on failure:
    replayed alone at bucket 1 as well (how many captions and alphas
    digests then differ, reported), and ``--diff`` against the untrained
    init reports each exemplar's divergence.
-29. chaos — the port's chaos campaign (``python -m
+29. multihost — ``python -m sat_tpu_torch.tools.multihost_demo --fleet
+   --procs 2`` at flagship widths in bf16 (``--extra-set``): two OS
+   processes started by the tool share the card under gloo, train 40
+   steps with worker 0 stalled ``MULTIHOST_SLOW_MS`` a step, checkpoint
+   and run the mesh eval with the attention panels.  rc 0 and the
+   banner; ``fleet.json`` with 2 hosts and process 0 the straggler (its
+   skew and each rank's own step printed; the stall above the other
+   rank's p95); B1 launched in each rank's eval.
+30. vocab5000 — ``python -m sat_tpu_torch.tools.vocab5000_run --steps 8
+   --eval-anns 8 --image-size 224`` over its 1700-image rich corpus: the
+   vocabulary exactly 5000 words, 3 tensors sharded over ``model``, the
+   loss parity of one process and the (2,4) mesh of eight ranks sharing
+   the card under gloo under 5e-2 at every record, finite scores both
+   ways, B1 in the one-process eval and in every rank's; each arm's
+   median step.
+31. chaos — the port's chaos campaign (``python -m
    sat_tpu_torch.tools.chaos_campaign --keep --workdir``) at flagship
    widths (``--extra-set image_size=224 dim_embedding=512 ...``, float32)
    on ``control``, ``wedge_watchdog``, ``poison_quarantine_replay``,
@@ -302,21 +317,26 @@ Phases, each fatal on failure:
    control's; the wedge's postmortem bundle; the poisoned run's
    heartbeat ``epoch`` and its quarantine records' epochs set; B2
    launched on cuda:0 by the serve wedge's child.
-30. vocab5000 — ``python -m sat_tpu_torch.tools.vocab5000_run --steps 8
-   --eval-anns 8 --image-size 224`` over its 1700-image rich corpus: the
-   vocabulary exactly 5000 words, 3 tensors sharded over ``model``, the
-   loss parity of one process and the (2,4) mesh of eight ranks sharing
-   the card under gloo under 5e-2 at every record, finite scores both
-   ways, B1 in the one-process eval and in every rank's; each arm's
-   median step.
-31. multihost — ``python -m sat_tpu_torch.tools.multihost_demo --fleet
-   --procs 2`` at flagship widths in bf16 (``--extra-set``): two OS
-   processes started by the tool share the card under gloo, train 40
-   steps with worker 0 stalled ``MULTIHOST_SLOW_MS`` a step, checkpoint
-   and run the mesh eval with the attention panels.  rc 0 and the
-   banner; ``fleet.json`` with 2 hosts and process 0 the straggler (its
-   skew and each rank's own step printed; the stall above the other
-   rank's p95); B1 launched in each rank's eval.
+   In the full run the campaigns start before the mesh phases and run
+   beside them (elastic waits for them); vocab5000 and the bench
+   children likewise beside quality and replay (replay waits for them).
+   Each phase line says what ran beside it, and the wait for a child
+   counts in the phase that joins it.
+32. bench children, bench tools — every measurement vehicle
+   (``sat_tpu_torch/tools/bench_*.py``, the ports of
+   ``scripts/bench_*.py``) once at the JAX scripts' small flags and
+   flagship widths: bulk, the eval A/B, the early-exit run and the
+   fleet, which start children of their own as the JAX scripts do, as
+   children of this script side by side (their times are smoke); every
+   other through its ``main`` in this process, one at a time and beside
+   nothing.  Each row the JAX script's metric and unit at the same flags, a finite value,
+   ``device_kind`` the card's name and power limit ("host-only" for
+   the six host vehicles and the input A/B); B1 and B2 counted around
+   each (from the rows for the children's), and each vehicle that
+   should launch a kernel launched it; then ``tools.check_regression``
+   over the rows against themselves (0), with one throughput halved (2,
+   naming it) and in compile-report mode over the eval sweep's
+   ``compile_report-decode.json`` (0).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches on the
 VGG16 and ResNet50 main paths, its time and bound at both grids), then
@@ -337,6 +357,10 @@ and 2x2 tp with loss parity) at flagship widths, into
 runs the profile tool's default mode (25 flagship steps at batch 32)
 and summarizes its capture.
 
+``python3 chip_smoke.py --bench-tools OUT`` runs the build, the eval
+phase and every measurement vehicle at its default sizes, its rows into
+``OUT/bench_tools.json``.
+
 ``python3 chip_smoke.py --bench`` runs only the build and a kernel
 bench: the kernel at every timed shape beside what bounds it there, the
 timing floor (a one-float memset), torch's sum over the same bytes, and
@@ -347,6 +371,7 @@ write back); and the host time to enqueue one call.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import glob
 import io
@@ -362,8 +387,6 @@ import time
 import urllib.error
 import urllib.request
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
-FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 SEED = 0
 
 
@@ -376,60 +399,57 @@ def phase(name: str, t0: float) -> None:
     print(f"phase {name}: ok in {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# processes this script starts to run beside its own work: stopped at its
+# exit, whatever the exit
+STARTED = []
+
+
+@atexit.register
+def stop_started() -> None:
+    for proc in STARTED:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            proc.wait()
+
+
+def start_child(base: str, argv, env=None):
+    """``python argv`` from the checkout in a session of its own (no
+    inherited fault knob), its standard output and error into
+    ``base``.out and ``base``.err; returns what :func:`finish_child`
+    reads."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    child_env = {k: v for k, v in os.environ.items() if not k.startswith("SAT_FI_")}
+    child_env.update(env or {}, PYTHONPATH=here)
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        proc = subprocess.Popen([sys.executable, *argv], cwd=here, stdout=out, stderr=err, env=child_env,
+                                start_new_session=True)
+    STARTED.append(proc)
+    return proc, base, time.time()
+
+
+def finish_child(started, where: str, timeout: int = 600):
+    """Wait for a :func:`start_child` process (its whole group is killed
+    past ``timeout`` seconds from its start); (exit code, standard
+    output, standard error, seconds from its start to its last output,
+    which a later wait does not lengthen)."""
+    proc, base, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        fail(f"{where}: no end within {timeout}s")
+    seconds = max(os.path.getmtime(base + ".out"), os.path.getmtime(base + ".err")) - t0
+    with open(base + ".out") as f:
+        out = f.read()
+    with open(base + ".err") as f:
+        err = f.read()
+    return rc, out, err, seconds
+
+
 # -- kernel phase ------------------------------------------------------------
-
-def attention_inputs(torch, B, N, da, D, gen):
-    """Inputs shaped like the decode path's: tanh features, a small w2,
-    non-negative (post-relu) contexts."""
-    dev = "cuda"
-    t1 = torch.tanh(torch.randn((B, N, da), generator=gen, device=dev))
-    t2 = torch.tanh(torch.randn((B, da), generator=gen, device=dev))
-    w2 = (torch.rand((da, 1), generator=gen, device=dev) - 0.5) * 0.16
-    ctx = torch.relu(torch.randn((B, N, D), generator=gen, device=dev))
-    return t1, t2, w2, ctx
-
-
-def time_ms(torch, fn, flush, reps: int = 60, warm: int = 10, read_flush: bool = False) -> float:
-    """Median device time of ``reps`` single calls, by CUDA events, with
-    the L2 cache flushed before each (the decode loop streams t1 and
-    contexts back from device memory every step).  A spin kernel ahead
-    of each call keeps the card busy while the host enqueues it, so the
-    host's launch overhead stays out of the interval.  The flush writes
-    ``flush``, leaving dirty lines the timed call writes back; with
-    ``read_flush`` (the bench's comparison) it reads it instead."""
-    for _ in range(warm):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        torch.cuda._sleep(1_000_000)  # ~0.5 ms of spinning
-        flush.max() if read_flush else flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
-def attention_bound_ms(B, N, da, D) -> tuple:
-    """Least time for the work: each input read once, each output
-    written once, over the memory rate; the float32 flops over the
-    float32 rate.  Returns (ms, "bytes" or "operations")."""
-    nbytes = 4 * (B * N * da + B * da + da + B * N * D + B * D + B * N)
-    flops = B * N * (3 * da + 2 * D) + 4 * B * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def masked_bound_ms(B, live, N, da, D) -> tuple:
-    """The masked body's least time: only live rows' inputs must be read
-    (dead rows are never touched), every row's outputs written; only live
-    rows' flops.  Returns (ms, "bytes" or "operations")."""
-    nbytes = 4 * (live * (N * da + da + N * D) + da + B * (D + N)) + B
-    flops = live * (N * (3 * da + 2 * D) + 4 * N)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
 
 def masked_inputs(args, mask):
     """Dead rows of ``args`` overwritten with NaN (t1, contexts) and ±Inf
@@ -447,6 +467,8 @@ def masked_phase(torch, fa):
     """The masked body: dead rows +0.0 bit for bit, live rows bitwise the
     unmasked kernel's on the same inputs, and in agreement
     (``fa.agreement``) with the masked plain version."""
+    from sat_tpu_torch.utils.benchmarking import attention_inputs, masked_bound_ms, time_ms
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     patterns = {
@@ -457,7 +479,7 @@ def masked_phase(torch, fa):
     errs = []
     for (B, N, da, D) in ((48, 196, 512, 512), (5, 7, 24, 40), (3, 196, 512, 512), (48, 49, 512, 2048)):
         for dtype in ("float32", "bfloat16"):
-            clean = attention_inputs(torch, B, N, da, D, gen)
+            clean = attention_inputs(B, N, da, D, gen)
             for name, make in patterns.items():
                 mask = make(B)
                 args = masked_inputs(clean, mask)
@@ -485,13 +507,11 @@ def masked_phase(torch, fa):
     rows = []
     B, da, dtype = 48, 512, "bfloat16"
     for N, D in ((196, 512), (49, 2048)):
-        args = attention_inputs(torch, B, N, da, D, gen)
+        args = attention_inputs(B, N, da, D, gen)
         for live in (48, 24, 3):
             mask = torch.arange(B, device="cuda") < live
-            ms = time_ms(torch, lambda: fa.fused_attend(*args, row_mask=mask, compute_dtype=dtype), flush)
-            plain_ms = time_ms(
-                torch, lambda: fa.fused_attend_reference(*args, row_mask=mask, compute_dtype=dtype), flush
-            )
+            ms = time_ms(lambda: fa.fused_attend(*args, row_mask=mask, compute_dtype=dtype), flush)
+            plain_ms = time_ms(lambda: fa.fused_attend_reference(*args, row_mask=mask, compute_dtype=dtype), flush)
             bound_ms, bound_by = masked_bound_ms(B, live, N, da, D)
             print(f"kernel masked fused_attend {dtype} B={B} N={N} D={D} live={live}: kernel "
                   f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
@@ -514,6 +534,8 @@ def kernel_phase(torch, fa):
     elementwise; bfloat16: the same rounded logits up to rare one-ulp
     flips), then a control: the kernel without its bf16 rounding (mode
     float32) held against the bf16 plain version must fail that rule."""
+    from sat_tpu_torch.utils.benchmarking import attention_bound_ms, attention_inputs, time_ms
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
@@ -522,7 +544,7 @@ def kernel_phase(torch, fa):
         print(f"plan fused_attend N={N} da={da} D={D}: {plan.cluster} blocks a row, "
               f"{plan.smem_bytes} bytes of shared memory a block, {plan._asdict()}", flush=True)
         for dtype in ("float32", "bfloat16"):
-            args = attention_inputs(torch, B, N, da, D, gen)
+            args = attention_inputs(B, N, da, D, gen)
             got = fa.fused_attend(*args, compute_dtype=dtype)
             want = fa.fused_attend_reference(*args, compute_dtype=dtype)
             logits = fa.reference_logits(*args[:3], compute_dtype=dtype)
@@ -536,8 +558,8 @@ def kernel_phase(torch, fa):
                     fail(f"control: the kernel without bf16 rounding passed the bf16 rule: {control}")
                 print(f"control fused_attend mode float32 vs bfloat16 plain B={B}: fails as it "
                       f"must ({control['why']}): {control}", flush=True)
-            ms = time_ms(torch, lambda: fa.fused_attend(*args, compute_dtype=dtype), flush)
-            plain_ms = time_ms(torch, lambda: fa.fused_attend_reference(*args, compute_dtype=dtype), flush)
+            ms = time_ms(lambda: fa.fused_attend(*args, compute_dtype=dtype), flush)
+            plain_ms = time_ms(lambda: fa.fused_attend_reference(*args, compute_dtype=dtype), flush)
             bound_ms, bound_by = attention_bound_ms(B, N, da, D)
             print(
                 f"kernel fused_attend {dtype} B={B} N={N} da={da} D={D}: {rep}; "
@@ -560,13 +582,15 @@ def row_invariance(torch, fa, N=196, da=512, D=512):
     alpha must be bitwise the same every time, in both dtypes.  The slot
     pool's gate (a reply decoded in the 48-row pool is bitwise the
     monolithic search's over 108 rows) rests on this."""
+    from sat_tpu_torch.utils.benchmarking import attention_inputs
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    row = attention_inputs(torch, 1, N, da, D, gen)
+    row = attention_inputs(1, N, da, D, gen)
     cases = 0
     for dtype in ("float32", "bfloat16"):
         want = fa.fused_attend(*row, compute_dtype=dtype)
         for B in (1, 3, 48, 96, 108):
-            t1, t2, _, ctx = attention_inputs(torch, B, N, da, D, gen)
+            t1, t2, _, ctx = attention_inputs(B, N, da, D, gen)
             for i in sorted({0, B // 2, B - 1}):
                 a1, a2, actx = t1.clone(), t2.clone(), ctx.clone()
                 a1[i], a2[i], actx[i] = row[0][0], row[1][0], row[3][0]
@@ -591,16 +615,18 @@ def bench_phase(torch, fa):
     that reads instead of writes; and, at B=96, the host time to enqueue
     one call through the wrapper.  Prints one line a shape and returns
     nothing: a bench, not a check."""
+    from sat_tpu_torch.utils.benchmarking import attention_bound_ms, attention_inputs, masked_bound_ms, time_ms
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     one = torch.zeros(1, device="cuda")
-    print(f"bench floor: one 4-byte memset timed the same way {time_ms(torch, one.zero_, flush) * 1e3:.1f} us",
+    print(f"bench floor: one 4-byte memset timed the same way {time_ms(one.zero_, flush) * 1e3:.1f} us",
           flush=True)
     cases = [(B, None, dt) for B in (96, 48, 12, 3) for dt in ("float32", "bfloat16")]
     cases += [(48, live, "bfloat16") for live in (48, 24, 3)]
     for B, live, dtype in cases:
         N, da, D = 196, 512, 512
-        args = attention_inputs(torch, B, N, da, D, gen)
+        args = attention_inputs(B, N, da, D, gen)
         mask = None if live is None else torch.arange(B, device="cuda") < live
         fn = lambda: fa.fused_attend(*args, row_mask=mask, compute_dtype=dtype)  # noqa: E731
         if (B, live, dtype) == (96, None, "bfloat16"):
@@ -612,13 +638,13 @@ def bench_phase(torch, fa):
             host_us = (time.perf_counter() - t0) * 1e4
             torch.cuda.synchronize()
             print(f"bench host enqueue a call through fused_attend: {host_us:.1f} us", flush=True)
-        us = time_ms(torch, fn, flush) * 1e3
+        us = time_ms(fn, flush) * 1e3
         bound_ms, _ = attention_bound_ms(B, N, da, D) if live is None else masked_bound_ms(B, live, N, da, D)
         # a yardstick for the bytes, not the function: torch's sum over as
         # many floats as the live rows' t1 and contexts
         same_bytes = torch.ones((live or B) * N * (da + D), device="cuda")
-        sum_us = time_ms(torch, same_bytes.sum, flush) * 1e3
-        clean = [time_ms(torch, f, flush, read_flush=True) * 1e3 for f in (fn, same_bytes.sum)]
+        sum_us = time_ms(same_bytes.sum, flush) * 1e3
+        clean = [time_ms(f, flush, read_flush=True) * 1e3 for f in (fn, same_bytes.sum)]
         print(f"bench fused_attend {dtype} B={B} live={live if live is not None else B}: {us:.1f} us; "
               f"bound {bound_ms * 1e3:.1f} us; torch sum over the same bytes {sum_us:.1f} us; "
               f"after a read flush: kernel {clean[0]:.1f} us, torch sum {clean[1]:.1f} us", flush=True)
@@ -1640,13 +1666,19 @@ def run_cli(args, where: str, timeout: int = 600, rc: int = 0, env=None, harness
         what = "python -m sat_tpu_torch.cli" if harness is CLI_HARNESS else "python -m"
         fail(f"{where}: {what} {' '.join(args)} exited {out.returncode}, "
              f"expected {rc}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    return harness_tally(out.stdout, out.stderr, wall, where), out.stdout
+
+
+def harness_tally(stdout: str, stderr: str, wall: float, where: str) -> dict:
+    """The counts a harness prints as its last line, with the wall seconds
+    and the end of standard error."""
+    last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
     if not last.startswith("chip_smoke counts "):
-        fail(f"{where}: no tally line:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+        fail(f"{where}: no tally line:\n{stdout[-2000:]}\n{stderr[-2000:]}")
     tally = json.loads(last[len("chip_smoke counts "):])
     tally["wall_s"] = wall
-    tally["stderr"] = out.stderr[-4000:]
-    return tally, out.stdout
+    tally["stderr"] = stderr[-4000:]
+    return tally
 
 
 def cli_here(args, where: str):
@@ -2744,6 +2776,8 @@ def train_reference_phase(torch, np, fa):
     launched by a train step); the kernel refuses to be differentiated on
     the card; an eval-loss step on the card launches B1 once a decode step
     (T in all) and matches the CPU's metrics within 1e-5 relative."""
+    from sat_tpu_torch.utils.benchmarking import attention_inputs
+
     from sat_tpu_torch.device import resolve_device
     from sat_tpu_torch.train.checkpoint import params_to_flat
     from sat_tpu_torch.train.step import (
@@ -2778,7 +2812,7 @@ def train_reference_phase(torch, np, fa):
         fail(f"train reference: cuda vs cpu loss rel err {loss_err:.3e}, param abs err {param_err:.3e}, "
              f"eval-loss rel err {eval_err:.3e} (tol 1e-5 each)")
     args = [x.requires_grad_(i == 2) for i, x in
-            enumerate(attention_inputs(torch, 3, 196, 512, 512, torch.Generator(device="cuda").manual_seed(SEED)))]
+            enumerate(attention_inputs(3, 196, 512, 512, torch.Generator(device="cuda").manual_seed(SEED)))]
     try:
         fa.fused_attend(*args)
     except RuntimeError as e:
@@ -4670,66 +4704,59 @@ CHAOS_GROUPS = (("control", "wedge_watchdog"), ("poison_quarantine_replay",),
                 ("wedge_postmortem", "systemic_no_restart", "serve_wedge_continuous"))
 
 
-def chaos_phase(np, tmp: str, card: str):
-    """``python -m sat_tpu_torch.tools.chaos_campaign`` at flagship widths
-    (``--extra-set``) with ``--keep --workdir`` on six scenarios, as three
-    campaigns run side by side (``CHAOS_GROUPS``), each in a fresh process:
-    each exits 0 with pass rate 1.0.  From the kept workdirs: the
-    supervised wedge's exit 86 after the watchdog's stack dump, one
-    restart from LAST_GOOD 3, LAST_GOOD 6, its 6.npz bitwise the
-    control's; the wedge's postmortem bundle (exit 86); the continuous
-    serve wedge launched B2 on cuda:0.  Returns the B2 launches."""
-    from sat_tpu_torch.resilience import lineage
-    from sat_tpu_torch.train.checkpoint import load_flat
-
-    here = os.path.dirname(os.path.abspath(__file__))
+def chaos_start(tmp: str):
+    """Start ``python -m sat_tpu_torch.tools.chaos_campaign`` at flagship
+    widths (``--extra-set``) with ``--keep --workdir``, one campaign a
+    group of ``CHAOS_GROUPS``, side by side; returns what
+    :func:`chaos_finish` reads."""
     root = os.path.join(tmp, "chaos")
     os.makedirs(root)
     sets = [x for w in FLAGSHIP_SETS for x in ("--extra-set", w)]
-    procs = []
-    try:
-        for i, group in enumerate(CHAOS_GROUPS):
-            wd = os.path.join(root, f"campaign{i}")
-            args = ["--only", ",".join(group), "--keep", "--workdir", wd,
-                    "--out", os.path.join(root, f"report{i}", "report.json"), *sets]
-            with open(os.path.join(root, f"campaign{i}.out"), "w") as out, \
-                    open(os.path.join(root, f"campaign{i}.err"), "w") as err:
-                procs.append((wd, args, time.perf_counter(), subprocess.Popen(
-                    [sys.executable, "-m", "sat_tpu_torch.tools.chaos_campaign", *args], cwd=here,
-                    stdout=out, stderr=err, start_new_session=True)))
-        reports, workdirs = {}, {}
-        for i, (wd, args, t0, proc) in enumerate(procs):
-            try:
-                proc.wait(timeout=900)
-            except subprocess.TimeoutExpired:
-                fail(f"chaos campaign {i}: did not finish within 900s")
-            wall = time.perf_counter() - t0
-            with open(os.path.join(root, f"campaign{i}.err")) as f:
-                err = f.read()
-            print(f"chaos campaign {i} on {card}: python -m sat_tpu_torch.tools.chaos_campaign {' '.join(args)} "
-                  f"exited {proc.returncode} in {wall:.1f}s", flush=True)
-            path, rows = os.path.join(root, f"report{i}", "report.json"), []
-            if os.path.exists(path):
-                with open(path) as f:
-                    rows = json.load(f)
-            for row in rows[:-1]:
-                extras = {k: v for k, v in row.items() if k not in ("metric", "value", "unit", "vs_baseline",
-                                                                     "seconds", "schema_version", "git_sha",
-                                                                     "run_id", "stamp_unix", "process_index",
-                                                                     "process_count", "device")}
-                print(f"chaos {row['metric'][len('chaos_'):]} on {card}: {'PASS' if row['value'] == 1.0 else 'FAIL'} "
-                      f"in {row['seconds']}s {json.dumps(extras)}", flush=True)
-            if proc.returncode != 0 or not rows or rows[-1]["value"] != 1.0 or \
-                    rows[-1]["scenarios"] != len(CHAOS_GROUPS[i]):
-                fail(f"chaos campaign {i}: exit {proc.returncode}, pass rate "
-                     f"{rows[-1] if rows else None}:\n{err[-4000:]}")
-            if rows[-1]["device"].get("kind") != torch_kind():
-                fail(f"chaos campaign {i}: its rows are stamped {rows[-1]['device']}, not the card")
-            for r in rows[:-1]:
-                name = r["metric"][len("chaos_"):]
-                reports[name], workdirs[name] = r, wd
-    finally:
-        stop_groups([p for *_, p in procs])
+    started = []
+    for i, group in enumerate(CHAOS_GROUPS):
+        wd = os.path.join(root, f"campaign{i}")
+        args = ["--only", ",".join(group), "--keep", "--workdir", wd,
+                "--out", os.path.join(root, f"report{i}", "report.json"), *sets]
+        started.append((wd, args, start_child(os.path.join(root, f"campaign{i}"),
+                                              ["-m", "sat_tpu_torch.tools.chaos_campaign", *args])))
+    return root, started
+
+
+def chaos_finish(np, chaos, card: str):
+    """Wait for :func:`chaos_start`'s six scenarios: each campaign exits 0
+    with pass rate 1.0.  From the kept workdirs: the supervised wedge's
+    exit 86 after the watchdog's stack dump, one restart from LAST_GOOD
+    3, LAST_GOOD 6, its 6.npz bitwise the control's; the wedge's
+    postmortem bundle (exit 86); the poison run's heartbeat and
+    quarantine epochs; the continuous serve wedge launched B2 on cuda:0.
+    Returns the B2 launches."""
+    from sat_tpu_torch.resilience import lineage
+    from sat_tpu_torch.train.checkpoint import load_flat
+
+    root, started = chaos
+    reports, workdirs = {}, {}
+    for i, (wd, args, child) in enumerate(started):
+        rc, _, err, wall = finish_child(child, f"chaos campaign {i}", timeout=900)
+        print(f"chaos campaign {i} on {card}: python -m sat_tpu_torch.tools.chaos_campaign {' '.join(args)} "
+              f"exited {rc} in {wall:.1f}s", flush=True)
+        path, rows = os.path.join(root, f"report{i}", "report.json"), []
+        if os.path.exists(path):
+            with open(path) as f:
+                rows = json.load(f)
+        for row in rows[:-1]:
+            extras = {k: v for k, v in row.items() if k not in ("metric", "value", "unit", "vs_baseline",
+                                                                 "seconds", "schema_version", "git_sha",
+                                                                 "run_id", "stamp_unix", "process_index",
+                                                                 "process_count", "device")}
+            print(f"chaos {row['metric'][len('chaos_'):]} on {card}: {'PASS' if row['value'] == 1.0 else 'FAIL'} "
+                  f"in {row['seconds']}s {json.dumps(extras)}", flush=True)
+        if rc != 0 or not rows or rows[-1]["value"] != 1.0 or rows[-1]["scenarios"] != len(CHAOS_GROUPS[i]):
+            fail(f"chaos campaign {i}: exit {rc}, pass rate {rows[-1] if rows else None}:\n{err[-4000:]}")
+        if rows[-1]["device"].get("kind") != torch_kind():
+            fail(f"chaos campaign {i}: its rows are stamped {rows[-1]['device']}, not the card")
+        for r in rows[:-1]:
+            name = r["metric"][len("chaos_"):]
+            reports[name], workdirs[name] = r, wd
 
     where = "chaos wedge_watchdog"
     wd = workdirs["wedge_watchdog"]
@@ -4795,19 +4822,31 @@ def torch_kind() -> str:
 V5000_STEPS = 8   # of the tool's 48
 
 
-def vocab5000_phase(np, tmp: str, card: str):
-    """``python -m sat_tpu_torch.tools.vocab5000_run --steps 8 --eval-anns 8
-    --image-size 224`` (1700 rich-corpus images) in a fresh process with
-    CLI_HARNESS's counts: the vocabulary exactly 5000 words, the tensors
-    sharded over ``model`` (the embedding rows and the last decode layer's
-    kernel and bias), the loss parity of one process and the (2,4) mesh
-    (eight ranks sharing the card under gloo) under 5e-2 at every record,
-    finite scores both ways, B1 once a decode step of the one-process eval
-    and in every rank of the mesh's.  Returns the B1 launches."""
-    where = "vocab5000"
+def vocab5000_start(tmp: str):
+    """Start ``python -m sat_tpu_torch.tools.vocab5000_run --steps 8
+    --eval-anns 8 --image-size 224`` (1700 rich-corpus images) in a fresh
+    process with CLI_HARNESS's counts; returns what
+    :func:`vocab5000_finish` reads."""
     out = os.path.join(tmp, "vocab5000")
-    tally, _ = run_cli(["sat_tpu_torch.tools.vocab5000_run", "--steps", str(V5000_STEPS), "--eval-anns", "8",
-                        "--image-size", "224", "--out", out], where, timeout=900, harness=TOOL_HARNESS)
+    return out, start_child(out, ["-c", TOOL_HARNESS, "sat_tpu_torch.tools.vocab5000_run", "--steps",
+                                  str(V5000_STEPS), "--eval-anns", "8", "--image-size", "224", "--out", out])
+
+
+def vocab5000_finish(np, v5000, card: str):
+    """Wait for :func:`vocab5000_start`'s run: exit 0, the vocabulary
+    exactly 5000 words, the tensors sharded over ``model`` (the embedding
+    rows and the last decode layer's kernel and bias), the loss parity of
+    one process and the (2,4) mesh (eight ranks sharing the card under
+    gloo) under 5e-2 at every record, finite scores both ways, B1 once a
+    decode step of the one-process eval and in every rank of the mesh's.
+    Returns the B1 launches."""
+    where = "vocab5000"
+    out, child = v5000
+    rc, stdout, stderr, wall = finish_child(child, where, timeout=900)
+    if rc != 0:
+        fail(f"{where}: python -m sat_tpu_torch.tools.vocab5000_run exited {rc}:\n{stdout[-3000:]}\n"
+             f"{stderr[-3000:]}")
+    tally = harness_tally(stdout, stderr, wall, where)
     with open(os.path.join(out, "result.json")) as f:
         r = json.load(f)
     print(f"{where} on {card}: {json.dumps({k: v for k, v in r.items() if not k.startswith('scores')})}",
@@ -4877,12 +4916,14 @@ def multihost_phase(tmp: str, card: str):
     """``python -m sat_tpu_torch.tools.multihost_demo --fleet --procs 2`` at
     flagship widths (``--extra-set``, bf16): two OS processes started by
     the tool share ``cuda:0`` under gloo, train 40 steps (worker 0 slowed
-    by ``--slow-ms``), checkpoint, and run the mesh eval with the
+    by ``--slow-ms`` or six of its own steps, the longer), checkpoint, and run the mesh eval with the
     cross-rank gather and the attention panels.  rc 0 and the banner;
     fleet.json with 2 hosts and process 0 the straggler (its skew and each
     rank's own step printed; the stall at least the other rank's p95 own
     step); rank 0 on the shared card; B1 launched in each rank's eval.
     Returns the ranks' B1 launches."""
+    from sat_tpu_torch.tools.multihost_demo import FLEET_SLOW_SCALE
+
     where = "multihost"
     root = os.path.join(tmp, "multihost")
     sets = [x for w in MULTIHOST_SETS for x in ("--extra-set", w)]
@@ -4911,7 +4952,8 @@ def multihost_phase(tmp: str, card: str):
           f"{wall:.1f}s: {banner[0]}", flush=True)
     print(f"{where} fleet on {card}: straggler p0 at {verdict['skew']}x the median (factor "
           f"{verdict['factor']}); own step p50/p95 rank 0 {hosts[0]['step_p50_ms']}/{hosts[0]['step_p95_ms']} ms "
-          f"(with the {MULTIHOST_SLOW_MS} ms stall), rank 1 {hosts[1]['step_p50_ms']}/{hosts[1]['step_p95_ms']} "
+          f"(stalled {MULTIHOST_SLOW_MS} ms or {FLEET_SLOW_SCALE:g} of its own median steps, the longer), "
+          f"rank 1 {hosts[1]['step_p50_ms']}/{hosts[1]['step_p95_ms']} "
           f"ms; dispatch mean {hosts[0]['dispatch_ms']}/{hosts[1]['dispatch_ms']} ms; train "
           f"{[round(t['train_s'], 2) for t in tallies]} s, eval {[round(t['eval_s'], 2) for t in tallies]} s; "
           f"B1 launches in the ranks' evals {launches}", flush=True)
@@ -5017,6 +5059,348 @@ def profile_trace_default(out_dir: str, card: str) -> int:
     return 0 if backward > 0 and kernels and not ours else 1
 
 
+# -- the measurement vehicles (tools/bench_*.py, tools/check_regression.py) ---
+
+BENCH_FLAGSHIP = tuple(x for w in FLAGSHIP_SETS for x in ("--extra-set", w))
+
+
+def jax_script_pairs(script: str, **fields) -> list:
+    """The (metric, unit) pairs ``scripts/<script>`` prints, in source
+    order, read from its text (nothing of the JAX package is imported):
+    the names the port's vehicle must print."""
+    import re
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", script)) as f:
+        src = f.read()
+    found = re.findall(r'"metric": f?"([^"]+)",(?:(?!"metric").)*?"unit": f?"([^"]+)"', src, re.DOTALL)
+
+    def fill(text):
+        return re.sub(r"\{args\.(\w+)\}", lambda m: str(fields[m.group(1)]), text)
+
+    return [(fill(m), fill(u)) for m, u in found]
+
+
+def vehicle_rows(text: str) -> list:
+    """A vehicle's JSON rows: one object a line, or one indented array."""
+    text = text.strip()
+    if text.startswith("["):
+        try:
+            return json.loads(text)
+        except ValueError:  # check_regression's "[function] ..." lines
+            pass
+    rows = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    return rows
+
+
+def run_vehicle(torch, fa, name: str, argv, env=None):
+    """``sat_tpu_torch.tools.<name>.main(argv)`` in this process, its
+    stdout captured, B1 and B2 counts set to 0 just before and read just
+    after, the telemetry registry disabled and the card's cache emptied
+    after.  Returns (rc, rows, B1, B2, seconds, stdout)."""
+    import gc
+    import importlib
+
+    from sat_tpu_torch import telemetry
+
+    module = importlib.import_module(f"sat_tpu_torch.tools.{name}")
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out = io.StringIO()
+    fa.fused_attend.launches = fa.fused_attend.masked_launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            try:
+                rc = module.main(list(argv))
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+                print(f"SystemExit: {e.code}", file=sys.stderr)
+    finally:
+        seconds = time.perf_counter() - t0
+        b1, b2 = fa.fused_attend.launches, fa.fused_attend.masked_launches
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        telemetry.disable()
+        gc.collect()
+        torch.cuda.empty_cache()
+    text = out.getvalue()
+    return rc, vehicle_rows(text), b1, b2, seconds, text
+
+
+# vehicles whose exit 1 is a measured gate (the JAX scripts' bars), not a
+# failure of the run: the row is printed either way.  Each of these exits
+# 1 on its overhead bar alone; bench_quality is not among them (below)
+BENCH_GATED = {"bench_diag", "bench_telemetry", "bench_obs", "bench_fleet", "bench_watchdog", "bench_integrity",
+               "bench_ckpt"}
+
+
+def bar_alone(name: str, rows, argv) -> bool:
+    """Whether a vehicle's exit 1 is its overhead bar and nothing else.
+    bench_quality also exits 1 on a failed request, a steady-state kernel
+    build, a reference left unfrozen or no live quality block: its exit 1
+    passes only where its row shows none of those."""
+    if name in BENCH_GATED:
+        return bool(rows)
+    if name != "bench_quality" or len(rows) != 1:
+        return False
+    r = rows[0]
+    requests = int(argv[argv.index("--requests") + 1]) if "--requests" in argv else 80
+    return (r.get("requests_ok") == requests and r.get("steady_state_compiles") == 0
+            and r.get("reference_frozen") is True and (r.get("quality_requests") or 0) > 0)
+
+
+# the vehicles whose kernels run in their children, and how their rows
+# carry the children's (B1, B2) launches
+BENCH_IN_CHILDREN = {
+    "bench_serve --fleet": lambda rows: tuple(sum(v[i] for v in rows[0]["replica_launches"].values())
+                                              for i in (0, 1)),
+    "bench_bulk": lambda rows: (rows[0]["fused_attend_launches"], rows[0]["fused_attend_masked_launches"]),
+    "bench_eval_ab": lambda rows: (rows[0]["fused_attend_launches"], 0),
+    "bench_early_exit": lambda rows: (sum(r["fused_attend_launches"] for r in rows), 0),
+}
+
+
+def check_vehicle(where: str, name: str, argv, rc: int, rows, pairs, kind: str, text: str) -> None:
+    """rc 0 (or an overhead bar's 1, :func:`bar_alone`), the JAX script's
+    metrics and units in its order, every value finite, ``device_kind``
+    the card (or "host-only"), stamped with the port's schema."""
+    import math
+
+    from sat_tpu_torch.telemetry import SCHEMA_VERSION
+
+    if rc != 0 and not (rc == 1 and bar_alone(name, rows, argv)):
+        fail(f"{where}: exit {rc}:\n{text[-3000:]}")
+    got = [(r.get("metric"), r.get("unit")) for r in rows]
+    if got != list(pairs):
+        fail(f"{where}: rows {got}, the JAX script's at these flags {list(pairs)}")
+    for r in rows:
+        v = r["value"]
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or not math.isfinite(v):
+            fail(f"{where}: {r['metric']} = {v!r}, not a finite number")
+        if r.get("device_kind") != kind or r.get("schema_version") != SCHEMA_VERSION:
+            fail(f"{where}: {r['metric']} device_kind {r.get('device_kind')!r} (want {kind!r}), schema "
+                 f"{r.get('schema_version')}")
+
+
+def bench_plan(tmp: str, full: bool):
+    """The vehicles in order: (label, tool, argv, env, the JAX script's
+    (metric, unit) pairs at these flags, host-only, B1 expected, B2
+    expected) — True for a kernel the vehicle must launch, False for one
+    it must not, None where it may (a continuous-mode server warms its
+    batch buckets too).  ``full``: each vehicle at its default sizes (the
+    serving and bulk vehicles' models are flagship by default)."""
+    def sizes(short, default=()):
+        return list(default) if full else list(short)
+
+    serve = jax_script_pairs("bench_serve.py", quant_ab="int8")
+    units = dict(serve)
+
+    def serve_rows(*metrics):
+        return [(m, units[m]) for m in metrics]
+
+    eval_unit = "images/sec @ beam=3"
+    plan = [
+        ("bench_eval", "bench_eval", sizes(["--batch", "8", "--iters", "3", "--encoder-quant", "int8"],
+                                           ["--encoder-quant", "int8"]), None,
+         [("eval_images_per_sec", eval_unit), ("eval_images_per_sec_int8", eval_unit)], False, True, False),
+        ("bench_attend", "bench_attend", sizes(["--iters", "50"]), None, [], False, True, True),
+        ("bench_serve", "bench_serve", [*BENCH_FLAGSHIP, *sizes(
+            ["--concurrency", "4", "--requests", "4", "--open-requests", "16", "--rate", "20", "--cont-rate", "10",
+             "--quant-ab", "int8"], ["--quant-ab", "int8"])], None,
+         serve_rows("serve_closed_loop_throughput", "serve_open_loop_p99_latency_ms", "serve_encode_ms",
+                    "serve_continuous_goodput", "serve_admission_latency_ms", "serve_single_stream_latency_ms",
+                    "serve_encode_ms_int8", "serve_closed_loop_throughput_int8"), False, True, True),
+        ("bench_serve --tenants", "bench_serve", [*BENCH_FLAGSHIP, "--tenants", *sizes(
+            ["--tenant-requests", "8", "--tenant-rate", "8", "--tenant-flood-rate", "30", "--tenant-concurrency",
+             "6", "--tenant-share-seconds", "2"])], None,
+         serve_rows("tenant_isolation_p99_ratio", "tenant_fair_share_error"), False, None, True),
+        ("bench_serve --metering", "bench_serve", [*BENCH_FLAGSHIP, "--metering", *sizes(
+            ["--metering-requests", "8", "--metering-rate", "8"])], None,
+         serve_rows("metering_overhead_pct", "encode_cache_would_hit_ratio"), False, None, True),
+        ("bench_serve --encode-cache", "bench_serve", [*BENCH_FLAGSHIP, "--encode-cache", *sizes(
+            ["--cache-requests", "40", "--cache-rate", "20"])], None,
+         serve_rows("encode_cache_hit_ratio", "cache_serve_goodput_rps"), False, None, True),
+        ("bench_serve --lifecycle", "bench_serve", [*BENCH_FLAGSHIP, "--lifecycle", *sizes(
+            ["--lifecycle-requests", "8", "--lifecycle-rate", "8"])], None,
+         serve_rows("swap_blackout_ms", "canary_overhead_pct"), False, None, True),
+        ("bench_serve --fleet", "bench_serve", [*BENCH_FLAGSHIP, "--fleet", *sizes(
+            ["--fleet-sizes", "1,2", "--fleet-requests", "6", "--fleet-rate", "10",
+             "--fleet-service-floor-ms", "300"])], None,
+         serve_rows("fleet_goodput_rps", "fleet_open_loop_p99_latency_ms", "fleet_disagg_goodput_rps",
+                    "fleet_router_overhead_ms"), False, True, False),
+        ("bench_bulk", "bench_bulk", [*BENCH_FLAGSHIP, "--workdir", os.path.join(tmp, "bench_bulk")], None,
+         jax_script_pairs("bench_bulk.py"), False, False, True),
+        ("bench_eval_ab", "bench_eval_ab", sizes(
+            ["--repeats", "1", "--batch", "8", "--iters", "3", "--windows", "2", "--steps", "3"]), None,
+         jax_script_pairs("bench_eval_ab.py", beam=3), False, True, False),
+        ("bench_early_exit", "bench_early_exit", [os.path.join(tmp, "bench_early_exit")],
+         {} if full else {"EE_STEPS": "30", "EE_BATCH": "8"},
+         [("eval_images_per_sec", eval_unit)] * 2, False, True, False),
+        ("bench_diag", "bench_diag", [*BENCH_FLAGSHIP, *sizes(["--batch", "8", "--iters", "5", "--rounds", "2"])],
+         None, jax_script_pairs("bench_diag.py"), False, False, False),
+        ("bench_quality", "bench_quality", [*BENCH_FLAGSHIP, *sizes(
+            ["--requests", "40", "--microbench", "1000", "--quality-window", "16"])], None,
+         jax_script_pairs("bench_quality.py"), False, True, False),
+    ]
+    host = {
+        "bench_input": (["--batch", "16", "--images", "32", "--sync-batches", "3", "--epochs", "1"],
+                        [("input_feed_speedup", "x")] * 2),
+        "bench_telemetry": (["--iters", "20000"], jax_script_pairs("bench_telemetry.py")),
+        "bench_obs": (["--iters", "1000"], jax_script_pairs("bench_obs.py")),
+        "bench_fleet": (["--iters", "100"], jax_script_pairs("bench_fleet.py")),
+        "bench_watchdog": (["--iters", "50000"], jax_script_pairs("bench_watchdog.py")),
+        "bench_integrity": (["--iters", "512"], jax_script_pairs("bench_integrity.py")),
+        "bench_ckpt": (["--mb", "16", "--iters", "5000"], jax_script_pairs("bench_ckpt.py")),
+    }
+    for name, (short, pairs) in host.items():
+        plan.append((name, name, sizes(short) + ["--workdir", os.path.join(tmp, name)], None, pairs, True,
+                     False, False))
+    return plan
+
+
+def check_bench_item(item, result, card: str, note: str = ""):
+    """One vehicle's result held to its plan ``item``: its rows (or, for
+    bench_attend, its sweep line) and the kernels it should have
+    launched; prints each row with the card and ``note``.  Returns (B1,
+    B2, its metric rows, its summary entries)."""
+    import math
+
+    label, name, argv, _, pairs, host_only, want_b1, want_b2 = item
+    rc, rows, b1, b2, seconds, text = result
+    where = f"bench_tools {label}"
+    if name == "bench_attend":
+        if rc != 0 or not rows or "sweep" not in rows[-1] or "verdict:" not in text:
+            fail(f"{where}: exit {rc}:\n{text[-3000:]}")
+        line = rows[-1]
+        if line.get("device_kind") != card or not math.isfinite(line["min_speedup"]) or \
+                [r["live"] for r in line["masked"]] != [48, 24, 3]:
+            fail(f"{where}: {json.dumps(line)[:2000]}")
+        for r in line["sweep"] + line["masked"]:
+            print(f"{where} on {card}: B={r['batch']}{' live ' + str(r['live']) if 'live' in r else ''} "
+                  f"kernel {r['kernel_us']} us, plain {r['plain_us']} us ({r['speedup']}x), bound "
+                  f"{r['bound_us']} us by {r['bound_by']} ({r['bound_share']:.1%} of it)", flush=True)
+        verdict = [ln for ln in text.splitlines() if ln.startswith("verdict:")][0]
+        print(f"{where} on {card}: min speedup {line['min_speedup']}x; {verdict}", flush=True)
+    else:
+        check_vehicle(where, name, argv, rc, rows, pairs, "host-only" if host_only else card, text)
+    if label in BENCH_IN_CHILDREN:
+        # launched in the vehicle's children: their counts ride its rows
+        b1, b2 = BENCH_IN_CHILDREN[label](rows)
+    if (want_b1 is not None and bool(b1) != want_b1) or (want_b2 is not None and bool(b2) != want_b2):
+        fail(f"{where}: B1 launched {b1} times, B2 {b2} (expected B1 {'>0' if want_b1 else '0'}, "
+             f"B2 {'>0' if want_b2 else '0'})")
+    metric_rows = [r for r in rows if "metric" in r]
+    summary = []
+    for r in metric_rows:
+        summary.append({"vehicle": label, "metric": r["metric"], "value": r["value"], "unit": r["unit"],
+                        "device_kind": r["device_kind"], "seconds": round(seconds, 1)})
+        print(f"{where} on {card}: {r['metric']} = {r['value']} {r['unit']} (exit {rc}, {seconds:.1f}s{note}; "
+              f"B1 {b1}, B2 {b2})", flush=True)
+    if not rows or name == "bench_attend":
+        summary.append({"vehicle": label, "line": rows[-1] if rows else None, "seconds": round(seconds, 1)})
+    return b1, b2, metric_rows, summary
+
+
+def bench_children_start(tmp: str, full: bool = False, only: str = ""):
+    """Start the vehicles whose JAX scripts start children of their own
+    (the fleet, bulk, the eval A/B and the early-exit run; ``only``: that
+    one), each as ``python -m sat_tpu_torch.tools.<name>``, side by side,
+    at the JAX scripts' small flags (``full``: the default sizes);
+    returns what :func:`bench_children_finish` reads."""
+    started = []
+    for item in bench_plan(tmp, full):
+        label, name, argv, env = item[:4]
+        if label in BENCH_IN_CHILDREN and only in ("", label):
+            started.append((item, start_child(os.path.join(tmp, "bench_" + label.replace(" ", "_").replace("-", "")),
+                                              ["-m", f"sat_tpu_torch.tools.{name}", *argv], env)))
+    return started
+
+
+def bench_children_finish(started, card: str, note: str = ", beside other work: a smoke time"):
+    """Wait for :func:`bench_children_start`'s vehicles, each held as in
+    :func:`bench_tools_phase` with its launches read from its rows (its
+    kernels ran in its children).  Returns (B1, B2, the rows, the
+    summary entries)."""
+    b1_total = b2_total = 0
+    rows, summary = [], []
+    for item, child in started:
+        rc, out, err, seconds = finish_child(child, f"bench_tools {item[0]}")
+        result = (rc, vehicle_rows(out), 0, 0, seconds, out + "\n--- stderr ---\n" + err[-3000:])
+        b1, b2, got, entries = check_bench_item(item, result, card, note)
+        b1_total, b2_total, rows, summary = b1_total + b1, b2_total + b2, rows + got, summary + entries
+    return b1_total, b2_total, rows, summary
+
+
+def bench_tools_phase(torch, fa, tmp: str, card: str, children, full: bool = False, out_dir: str = ""):
+    """Every other ported measurement vehicle, through its ``main`` in
+    this process, one at a time and beside nothing, at the JAX scripts'
+    small flags and flagship widths where it loads a model (``full``: the
+    default sizes).  Each row: the JAX script's metric names and units at
+    these flags, a finite value, ``device_kind`` the card (or
+    "host-only"); B1 and B2 counted around each, and each vehicle that
+    should launch a kernel launched it.  Then ``check_regression`` three
+    times over these rows and ``children``' (:func:`bench_children_finish`'s
+    return): the rows against themselves (0), with one throughput halved
+    (2, naming it), and in compile-report mode over the eval sweep's
+    ``compile_report-decode.json`` (0).  Returns (B1, B2) launched by
+    every vehicle."""
+    b1_total, b2_total, all_rows, summary = children
+    for item in bench_plan(tmp, full):
+        label, name, argv, env = item[:4]
+        if label in BENCH_IN_CHILDREN:
+            continue
+        b1, b2, got, entries = check_bench_item(item, run_vehicle(torch, fa, name, argv, env), card)
+        b1_total, b2_total, all_rows, summary = b1_total + b1, b2_total + b2, all_rows + got, summary + entries
+
+    # the regression gate over the phase's own rows, then one halved: one
+    # row a metric (the gate holds a row to the best prior of its name, and
+    # eval_images_per_sec comes from three vehicles, bench_input's twice)
+    gate_dir = os.path.join(tmp, "bench_gate")
+    os.makedirs(gate_dir, exist_ok=True)
+    rows_path = os.path.join(gate_dir, "rows.jsonl")
+    firsts = {}
+    for r in all_rows:
+        firsts.setdefault(r["metric"], r)
+    gate_rows = list(firsts.values())
+    with open(rows_path, "w") as f:
+        f.write("\n".join(json.dumps(r) for r in gate_rows) + "\n")
+    rc, _, _, _, _, text = run_vehicle(torch, fa, "check_regression", [rows_path, rows_path])
+    if rc != 0 or "no regressions" not in text:
+        fail(f"bench_tools check_regression over its own rows: exit {rc}:\n{text[-3000:]}")
+    halved = [dict(r) for r in gate_rows]
+    target = next(r for r in halved if r["metric"] == "serve_closed_loop_throughput")
+    target["value"] = target["value"] / 2
+    cut_path = os.path.join(gate_dir, "halved.jsonl")
+    with open(cut_path, "w") as f:
+        f.write("\n".join(json.dumps(r) for r in halved) + "\n")
+    rc2, _, _, _, _, text2 = run_vehicle(torch, fa, "check_regression", ["--baseline", rows_path,
+                                                                        "--current", cut_path])
+    named = [ln for ln in text2.splitlines() if ln.endswith("REGRESSION")]
+    if rc2 != 2 or len(named) != 1 or not named[0].startswith("serve_closed_loop_throughput"):
+        fail(f"bench_tools check_regression with serve_closed_loop_throughput halved: exit {rc2}, named "
+             f"{named}:\n{text2[-3000:]}")
+    report = os.path.join(tmp, "eval", "tel", "compile_report-decode.json")
+    rc3, _, _, _, _, text3 = run_vehicle(torch, fa, "check_regression", ["--compile-baseline", report,
+                                                                        "--compile-current", report])
+    gated = [ln for ln in text3.splitlines() if ln.startswith("[decode/")]
+    if rc3 != 0 or not any("flops" in ln for ln in gated):
+        fail(f"bench_tools check_regression compile-report mode: exit {rc3}:\n{text3[-3000:]}")
+    print(f"bench_tools check_regression on {card}: {len(gate_rows)} rows against themselves exit {rc}; "
+          f"serve_closed_loop_throughput halved exit {rc2} naming it; compile-report mode over the eval "
+          f"sweep's compile_report-decode.json exit {rc3} ({len(gated)} lines)", flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "bench_tools.json"), "w") as f:
+            json.dump({"card": card, "full": full, "vehicles": summary, "rows": all_rows}, f, indent=1)
+    return b1_total, b2_total
+
+
 def memory_lead(torch, card: str) -> None:
     """What holds the card's memory at this point of the run: the
     allocator's statistics (``torch.cuda.memory_stats``) and the live
@@ -5062,9 +5446,12 @@ def served(np, config) -> None:
 
 def phases(torch, np, fa, card: str):
     """The full run's phases in order: (name, the phases it needs before
-    it, its function of the run's scratch directory).  What a phase
-    returns is kept under its name; later phases read the launches and
-    the serve engine from there."""
+    it, its function of the run's scratch directory, or for a phase made
+    of child processes the pair (start, finish): ``start`` of the
+    directory starts them and ``finish`` of what it returned waits and
+    checks, see ``BESIDE``).  What a phase returns is kept under its
+    name; later phases read the launches and the serve engine from
+    there."""
     got = {}
 
     def slice_(tmp):
@@ -5130,6 +5517,10 @@ def phases(torch, np, fa, card: str):
         got["quality"] = quality_phase(torch, np, tmp, card)
         return got["quality"]["launches"]
 
+    def bench_children(started):
+        got["bench children"] = bench_children_finish(started, card)
+        return got["bench children"][:2]
+
     return [
         ("kernel", (), lambda tmp: kernel_phase(torch, fa)),
         ("masked", (), lambda tmp: masked_phase(torch, fa)),
@@ -5157,16 +5548,65 @@ def phases(torch, np, fa, card: str):
         ("resnet50 eval and train", ("eval", "train"), r50_eval_and_train),
         ("import", ("resnet50 eval and train",), lambda tmp: import_phase(np, got["r50_train"], card)),
         ("encoder_quant", (), encoder_quant),
+        ("chaos", (), (chaos_start, lambda started: chaos_finish(np, started, card))),
         ("mesh train", (), lambda tmp: mesh_phase(np, tmp, card, got)),
         ("vocab parallel", ("mesh train",), lambda tmp: vocab_parallel_phase(np, tmp, card, got)),
         ("context parallel", ("mesh train",), lambda tmp: context_parallel_phase(np, tmp, card, got)),
         ("elastic", ("mesh train",), lambda tmp: elastic_phase(np, tmp, card, got)),
+        ("multihost", (), lambda tmp: multihost_phase(tmp, card)),
+        ("vocab5000", (), (vocab5000_start, lambda started: vocab5000_finish(np, started, card))),
+        ("bench children", (), (bench_children_start, bench_children)),
         ("quality", (), quality),
         ("replay", ("quality",), lambda tmp: replay_phase(torch, np, got["quality"], card)),
-        ("chaos", (), lambda tmp: chaos_phase(np, tmp, card)),
-        ("vocab5000", (), lambda tmp: vocab5000_phase(np, tmp, card)),
-        ("multihost", (), lambda tmp: multihost_phase(tmp, card)),
+        ("bench tools", ("eval", "bench children"),
+         lambda tmp: bench_tools_phase(torch, fa, tmp, card, got["bench children"])),
     ]
+
+
+# phases made only of child processes, run beside the phases that follow
+# them, up to and including the one named here, when both run: their
+# processes wait mostly on process starts, gloo and their own deadlines.
+# The phases beside them check results, not times, and their phase lines
+# say what ran beside them (their printed times read a shared card and
+# shared cores); the timing-sensitive multihost phase and the in-process
+# vehicles run beside nothing
+BESIDE = {"chaos": "elastic", "vocab5000": "replay", "bench children": "replay"}
+
+
+def run_plan(plan, chosen, tmp: str, only: bool) -> dict:
+    """Run the phases of ``plan`` (:func:`phases`) whose names are in
+    ``chosen``, in order, a ``BESIDE`` phase beside those that follow it
+    when the phase it joins is chosen too; returns what each phase
+    returned, by name.  ``only``: print each phase's launches."""
+    got, beside = {}, {}
+    for name, _, run in plan:
+        if name.replace(" ", "_") not in chosen:
+            continue
+        t0 = time.perf_counter()
+        if isinstance(run, tuple):
+            start, finish = run
+            if BESIDE[name].replace(" ", "_") in chosen:
+                beside[name] = (finish, start(tmp), t0)
+                print(f"{name} started: its children run beside the phases up to {BESIDE[name]}", flush=True)
+                continue
+            got[name] = finish(start(tmp))
+            phase(name, t0)
+            continue
+        running = sorted(beside)
+        got[name] = run(tmp)
+        joined = sorted(other for other in beside if BESIDE[other] == name)
+        for other in joined:
+            finish, started, t_other = beside.pop(other)
+            got[other] = finish(started)
+            print(f"{other} (beside the phases since its start) ran {time.perf_counter() - t_other:.1f}s",
+                  flush=True)
+        # the wait for the phases it joins counts as this phase's time
+        phase(f"{name} (beside {', '.join(running)}{'; with the wait for it' if joined else ''})"
+              if running else name, t0)
+        value = got[name]
+        if only and (isinstance(value, int) or isinstance(value, tuple) and all(isinstance(v, int) for v in value)):
+            print(f"{name} launches {value}", flush=True)
+    return got
 
 
 def main() -> int:
@@ -5177,6 +5617,9 @@ def main() -> int:
                     help="run multihost_demo in its five layouts at full width, summary into OUT")
     ap.add_argument("--profile-trace", default="", metavar="OUT",
                     help="run profile_trace's default mode into OUT and summarize its capture")
+    ap.add_argument("--bench-tools", default="", metavar="OUT",
+                    help="run the eval phase, then every measurement vehicle at its default sizes; "
+                    "rows into OUT/bench_tools.json")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sat_tpu_torch")):
@@ -5217,6 +5660,21 @@ def main() -> int:
         return multihost_layouts(os.path.abspath(args.layouts), card)
     if args.profile_trace:
         return profile_trace_default(os.path.abspath(args.profile_trace), card)
+    if args.bench_tools:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            t0 = time.perf_counter()
+            eval_phase(np, eval_config(tmp), card)
+            phase("eval", t0)
+            t0 = time.perf_counter()
+            children = (0, 0, [], [])
+            for label in BENCH_IN_CHILDREN:  # one at a time
+                part = bench_children_finish(bench_children_start(tmp, full=True, only=label), card, note="")
+                children = tuple(a + b for a, b in zip(children, part))
+            launches = bench_tools_phase(torch, fa, tmp, card, children, full=True,
+                                         out_dir=os.path.abspath(args.bench_tools))
+            phase("bench tools (default sizes)", t0)
+        print(f"bench tools launches (B1, B2) {launches}", flush=True)
+        return 0
     plan = phases(torch, np, fa, card)
     names = [name.replace(" ", "_") for name, _, _ in plan]
     chosen = set(names)
@@ -5229,17 +5687,8 @@ def main() -> int:
         for name, needs, _ in reversed(plan):
             if name.replace(" ", "_") in chosen:
                 chosen.update(n.replace(" ", "_") for n in needs)
-    got = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        for (name, _, run), key in zip(plan, names):
-            if key in chosen:
-                t0 = time.perf_counter()
-                got[name] = run(tmp)
-                phase(name, t0)
-                value = got[name]
-                if args.only and (isinstance(value, int) or isinstance(value, tuple) and all(
-                        isinstance(v, int) for v in value)):
-                    print(f"{name} launches {value}", flush=True)
+        got = run_plan(plan, chosen, tmp, bool(args.only))
     if args.only:
         return 0
     rows, (masked_rows, masked_err) = got["kernel"], got["masked"]
@@ -5256,6 +5705,7 @@ def main() -> int:
     mesh_b1 = mesh_ranks_b1 + got["mesh train"][1]
     quality_b1, (replay_b1, replay_b2) = got["quality"], got["replay"]
     chaos_b2, v5000_b1, multihost_b1 = got["chaos"], got["vocab5000"], got["multihost"]
+    bench_b1, bench_b2 = got["bench tools"]
 
     for B, N, what in ((60, 196, "eval: batch 20 x beam 3"), (20, 196, "eval-loss step: batch 20"),
                        (96, 49, "ResNet50 bucket 32 x beam 3"), (60, 49, "ResNet50 eval: batch 20 x beam 3")):
@@ -5264,7 +5714,7 @@ def main() -> int:
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
     vgg_b1 = (launches + ops_launches + eval_launches + test_launches + eval_loss_launches
-              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1 + v5000_b1 + multihost_b1)
+              + planes_b1 + route_b1 + mesh_b1 + quality_b1 + replay_b1 + v5000_b1 + multihost_b1 + bench_b1)
     r50_b1 = r50_launches + r50_eval + import_launches
     print(f"fused_attend launches on the main paths: VGG16 batch serve {launches}, serve ops "
           f"{ops_launches} (masked {ops_masked}), eval and sweep "
@@ -5273,12 +5723,13 @@ def main() -> int:
           f"rank of the data- and vocab-parallel launches {mesh_ranks_b1}, their one-process reference "
           f"{mesh_b1 - mesh_ranks_b1}, quality evals {quality_b1}, replay serving and tool {replay_b1}, "
           f"vocab5000 evals (one process and eight ranks) {v5000_b1}, multihost_demo evals (two ranks) "
-          f"{multihost_b1}; "
+          f"{multihost_b1}, the measurement vehicles {bench_b1}; "
           f"ResNet50 batch "
           f"serve {r50_launches}, eval "
           f"{r50_eval}, test of the imported npy {import_launches}; train steps 0; masked: VGG16 continuous "
           f"serve {masked_launches}, bulk {bulk_launches}, serve planes {planes_b2}, route replicas "
-          f"{route_b2}, replay serving and tool {replay_b2}, the chaos serve wedge {chaos_b2}; ResNet50 continuous "
+          f"{route_b2}, replay serving and tool {replay_b2}, the chaos serve wedge {chaos_b2}, the measurement "
+          f"vehicles {bench_b2}; ResNet50 continuous "
           f"serve {r50_masked}, bulk {r50_bulk}, serve planes {r50_planes}", flush=True)
     main_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 196, "bfloat16"))
     r50_row = next(r for r in rows if (r["B"], r["N"], r["dtype"]) == (96, 49, "bfloat16"))
@@ -5304,6 +5755,7 @@ def main() -> int:
         "launches_quality_and_replay": quality_b1 + replay_b1,
         "launches_vocab5000": v5000_b1,
         "launches_multihost": multihost_b1,
+        "launches_bench_tools": bench_b1,
         "resnet50": {"shape": "B=96 N=49 da=512 D=2048 bfloat16", "ms": r50_row["ms"],
                      "plain_ms": r50_row["plain_ms"], "bound_ms": r50_row["bound_ms"],
                      "bound_by": r50_row["bound_by"]},
@@ -5313,7 +5765,7 @@ def main() -> int:
         "source": "sat_tpu_torch/csrc/fused_attend.cu",
         "replaces": "sat_tpu/ops/pallas_attention.py:95",
         "launches": (masked_launches + ops_masked + bulk_launches + planes_b2 + route_b2 + r50_masked + r50_bulk
-                     + r50_planes + replay_b2 + chaos_b2),
+                     + r50_planes + replay_b2 + chaos_b2 + bench_b2),
         "max_abs_err": masked_err,
         "ms": masked_row["ms"],
         "kernel_ms": masked_row["ms"],
@@ -5326,6 +5778,7 @@ def main() -> int:
         "launches_route_replicas": route_b2,
         "launches_replay": replay_b2,
         "launches_chaos": chaos_b2,
+        "launches_bench_tools": bench_b2,
         "resnet50": {"shape": "B=48 N=49 da=512 D=2048 bfloat16, 48 rows live", "ms": r50_masked_row["ms"],
                      "plain_ms": r50_masked_row["plain_ms"], "bound_ms": r50_masked_row["bound_ms"],
                      "bound_by": r50_masked_row["bound_by"]},

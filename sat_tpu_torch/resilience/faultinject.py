@@ -51,6 +51,13 @@ Knobs::
     SAT_FI_SLOW_STEP_MS=m      add m milliseconds of host-side stall to
                                every step (a degraded-but-alive device;
                                the watchdog must NOT fire)
+    SAT_FI_SLOW_STEP_SCALE=k   stall at least k times the median of this
+                               process's own steps so far (the time
+                               between two steps less the stall), m ms
+                               or more, so a slowed rank stays k+1 times
+                               its peers' step however loaded the host is
+                               (the port's own knob; the JAX package has
+                               none)
     SAT_FI_WEDGE_SERVE_BATCH=n wedge the n-th (1-based) dispatched serve
                                batch at the result drain: its requests
                                must fail 500, /healthz must degrade to
@@ -102,9 +109,10 @@ from __future__ import annotations
 import errno
 import os
 import signal
+import statistics
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 ENV_PREFIX = "SAT_FI_"
 
@@ -121,6 +129,16 @@ class InjectedIOError(OSError):
 
     def __init__(self, desc: str, remaining: int):
         super().__init__(errno.EIO, f"injected transient IO error ({desc}; {remaining} more armed)")
+
+
+def _env_float(env: Dict[str, str], key: str) -> Optional[float]:
+    raw = env.get(ENV_PREFIX + key)
+    if raw is None or raw == "":
+        return None
+    try:
+        return float(raw)
+    except ValueError as e:
+        raise ValueError(f"{ENV_PREFIX}{key}={raw!r}: expected a number") from e
 
 
 def _env_int(env: Dict[str, str], key: str) -> Optional[int]:
@@ -152,6 +170,13 @@ class FaultPlan:
     bad_image_every: Optional[int] = None
     bad_caption_at: Optional[int] = None
     _fired: Dict[str, bool] = field(default_factory=dict)
+    # the port's own knob (SAT_FI_SLOW_STEP_SCALE), not the JAX package's,
+    # and maybe_slow's clock while it is set: (time of its last call, the
+    # stall it then slept), and the intervals between calls less those
+    # stalls
+    slow_step_scale: Optional[float] = None
+    _slow_mark: Optional[Tuple[float, float]] = None
+    _own_steps: List[float] = field(default_factory=list)
 
     @classmethod
     def from_env(cls, env: Optional[Dict[str, str]] = None) -> "FaultPlan":
@@ -169,6 +194,7 @@ class FaultPlan:
             corrupt_shard_row=_env_int(env, "CORRUPT_SHARD_ROW"),
             bad_image_every=_env_int(env, "BAD_IMAGE_EVERY"),
             bad_caption_at=_env_int(env, "BAD_CAPTION_AT"),
+            slow_step_scale=_env_float(env, "SLOW_STEP_SCALE"),
         )
 
     @property
@@ -180,6 +206,7 @@ class FaultPlan:
             and self.corrupt_ckpt_step is None
             and self.wedge_at_step is None
             and self.slow_step_ms is None
+            and self.slow_step_scale is None
             and self.wedge_serve_batch is None
             and self.slow_serve_ms is None
             and self.canary_slow_ms is None
@@ -238,11 +265,24 @@ class FaultPlan:
 
     def maybe_slow(self, step: int) -> None:
         """Before dispatching ``step``: stall ``slow_step_ms`` of host
-        time.  Degraded-but-alive; per-phase progress keeps ticking and
-        the watchdog must stay quiet."""
-        if self.slow_step_ms is None:
+        time, or ``slow_step_scale`` times the median of this process's
+        own steps so far where that is longer.  Degraded-but-alive;
+        per-phase progress keeps ticking and the watchdog must stay
+        quiet."""
+        if self.slow_step_ms is None and self.slow_step_scale is None:
             return
-        time.sleep(self.slow_step_ms / 1e3)
+        stall = (self.slow_step_ms or 0) / 1e3
+        if self.slow_step_scale:
+            now = time.perf_counter()
+            if self._slow_mark is not None:
+                last, slept = self._slow_mark
+                self._own_steps.append(now - last - slept)
+            # the first interval holds the loop's start (loader, first
+            # call): not a step, so not a sample
+            if len(self._own_steps) > 1:
+                stall = max(stall, self.slow_step_scale * statistics.median(self._own_steps[1:]))
+            self._slow_mark = (now, stall)
+        time.sleep(stall)
 
     def maybe_slow_serve(self) -> None:
         """At every serve result drain: stall ``slow_serve_ms`` of host

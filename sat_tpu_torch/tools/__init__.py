@@ -20,11 +20,19 @@ file name, flags and exit codes of ``scripts/<name>.py``:
   or a serve stack in a child process on the fixture of :mod:`.fixtures`;
 * :mod:`.vocab5000_run` — training and beam eval at V=5000 in one process
   against a (2,4) vocab-parallel mesh, whose ranks run the CLI through
-  :mod:`.cli_ranks`.
+  :mod:`.cli_ranks`;
+* the measurement vehicles, one for each ``scripts/bench_*.py`` with its
+  metric names (:mod:`.bench_attend` for ``bench_pallas``): the kernel,
+  eval, eval A/B, early-exit, serve, bulk, diag and quality vehicles on
+  the card, and seven host-only ones (input, telemetry, obs, fleet,
+  watchdog, integrity, ckpt), over :mod:`.benchlib` and
+  ``utils.benchmarking``; :mod:`.check_regression` gates their rows and
+  the compile reports.
 
 Every tool runs on the card unless the caller asks for the CPU (``--cpu``
-on the quality tools, the chaos campaign and the V=5000 run,
-``SAT_TORCH_DEVICE=cpu`` on any tool); without a card and without that
-request it raises.  Importing a tool
+on the quality tools, the chaos campaign, the V=5000 run and the
+vehicles whose JAX script has it, ``SAT_TORCH_DEVICE=cpu`` on any tool);
+without a card and without that request it raises (a vehicle exits 1
+with the reason).  Importing a tool
 loads nothing heavy: torch and the model code come in inside ``main``.
 """

@@ -22,7 +22,8 @@ the demo's config, so a run can take the flagship widths; under ``--tp``
 each rank counts the parameters it holds as blocks of a leaf the
 placement rule shards over ``model`` and prints ``TP verified``; under
 ``--fleet`` rank 0 merges the sidecars after a ``torch.distributed``
-barrier.  Every worker's full output is kept as
+barrier, and worker 0's stall is ``--slow-ms`` or ``FLEET_SLOW_SCALE``
+times its own median step, the longer.  Every worker's full output is kept as
 ``<root>/worker_p<r>.log`` and its ``fused_attend`` launches in the eval
 as ``<root>/tally_p<r>.json``.
 
@@ -55,6 +56,11 @@ RENDEZVOUS_FLAKE = re.compile(
     r"DistStoreError: .*[Tt]imed out|Gloo connectFullMesh failed|EADDRINUSE|address already in use"
 )
 ATTEMPTS = 3
+# under --fleet worker 0 stalls --slow-ms, or this many of its own median
+# steps where that is longer (SAT_FI_SLOW_STEP_SCALE): with two ranks the
+# 1.5x straggler factor needs its step above three times the other's, and
+# a fixed stall falls under that once a loaded host stretches every step
+FLEET_SLOW_SCALE = 6
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,7 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--slow-ms", type=int, default=75,
-        help="host-side stall injected per step into worker 0 under --fleet",
+        help="host-side stall injected per step into worker 0 under --fleet "
+        f"(or {FLEET_SLOW_SCALE:g} times its median own step, measured as it runs, "
+        "where that is longer)",
     )
     ap.add_argument(
         "--check-loss-parity", action="store_true",
@@ -226,6 +234,7 @@ def _rank_env(base: dict, p: int, nprocs: int, port: int, slow_ms: Optional[int]
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     if slow_ms is not None:
         env["SAT_FI_SLOW_STEP_MS"] = str(slow_ms)
+        env["SAT_FI_SLOW_STEP_SCALE"] = str(FLEET_SLOW_SCALE)
     return env
 
 

@@ -83,13 +83,20 @@ def test_multihost_demo_fleet_names_the_slowed_rank(tmp_path):
     """``--fleet``: worker 0 alone is slowed (SAT_FI_SLOW_STEP_MS); the
     merged fleet.json reports both ranks and names process 0 the
     straggler although the ranks' collectives keep them in lockstep (the
-    fleet plane reads each rank's step less its waits on the other).  A
-    stall of several times a rank's own CPU step (~0.1 s here) keeps the
-    verdict clear of the 1.5x factor over a two-rank median."""
+    fleet plane reads each rank's step less its waits on the other).
+    With two ranks the 1.5x factor over their median needs worker 0's
+    step p95 above three times worker 1's.  Two things keep that clear of
+    the host's load.  A fixed stall is no multiple of a CPU step that
+    grows with the load, so worker 0's stall is 500 ms or six times its
+    own median step, measured as it runs, the longer (the demo's
+    ``FLEET_SLOW_SCALE``).  And each rank computes on one torch thread:
+    with two, a step waits on the slower thread at every parallel op, and
+    on a loaded host worker 1's p95 step reached several times its
+    median (one thread keeps it near 1.5 times)."""
     # an inherited fault knob never reaches a worker: this one would
     # preempt both ranks at their third step
     rc, out, err = run_demo(tmp_path / "demo", "--fleet", "--slow-ms", "500",
-                            env={"SAT_FI_DIE_AT_STEP": "3"})
+                            env={"SAT_FI_DIE_AT_STEP": "3", "OMP_NUM_THREADS": "1"})
     assert rc == 0, f"{out[-3000:]}\n--- stderr ---\n{err[-1500:]}"
     assert "fleet verdict: p0" in out and "2 hosts merged" in out
     assert "MULTIHOST OK (data-parallel): 2 processes" in out

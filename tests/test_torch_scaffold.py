@@ -30,6 +30,11 @@ def _port_sources():
 TOOLS = ("corpus", "quality_run", "continue_quality_run", "import_finetune_run", "export_reference",
          "trim_model", "replay_exemplar", "merge_traces", "check_slo", "fixtures", "analyze_postmortem",
          "chaos_campaign", "cli_ranks", "vocab5000_run", "multihost_demo", "profile_trace")
+# the measurement vehicles, one a script of scripts/bench_*.py, the regression
+# gate, and what they share
+BENCH_TOOLS = ("benchlib", "check_regression", "bench_eval", "bench_attend", "bench_serve", "bench_bulk",
+               "bench_eval_ab", "bench_early_exit", "bench_diag", "bench_input", "bench_quality",
+               "bench_telemetry", "bench_obs", "bench_fleet", "bench_watchdog", "bench_integrity", "bench_ckpt")
 
 
 def test_import_loads_neither_jax_nor_sat_tpu():
@@ -47,7 +52,7 @@ def test_import_loads_neither_jax_nor_sat_tpu():
         "import sat_tpu_torch.telemetry.heartbeat\n"
         "import sat_tpu_torch.telemetry.device, sat_tpu_torch.telemetry.compile_report\n"
         "from sat_tpu_torch.runtime import train, setup_train_state\n"
-        f"tools = {TOOLS!r}\n"
+        f"tools = {TOOLS + BENCH_TOOLS!r}\n"
         "for t in tools: importlib.import_module('sat_tpu_torch.tools.' + t)\n"
         "names = [m.name for m in pkgutil.walk_packages(sat_tpu_torch.__path__, 'sat_tpu_torch.')]\n"
         "assert {'sat_tpu_torch.tools.' + t for t in tools} <= set(names), names\n"
@@ -72,6 +77,24 @@ def test_campaign_and_vocab5000_load_neither_jax_nor_sat_tpu():
         "import sys\n"
         "import sat_tpu_torch.tools.chaos_campaign, sat_tpu_torch.tools.vocab5000_run\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sat_tpu'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["utils.benchmarking"] + [f"tools.{t}" for t in BENCH_TOOLS])
+def test_measurement_vehicles_load_neither_jax_nor_sat_tpu_nor_torch(module):
+    """Each measurement vehicle, the regression gate and the shared
+    measurement core, imported alone in a fresh interpreter: no jax,
+    flax, optax or sat_tpu module loads, and no torch either (a vehicle
+    takes torch inside ``main``)."""
+    code = (
+        "import sys\n"
+        f"import sat_tpu_torch.{module}\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'sat_tpu', 'torch'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

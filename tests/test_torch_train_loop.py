@@ -529,7 +529,12 @@ def test_fault_plan_reads_the_jax_knobs_and_poisons_a_port_state(trained):
     env = {"SAT_FI_DIE_AT_STEP": "5", "SAT_FI_NAN_AT_STEP": "2", "SAT_FI_CORRUPT_SHARD_ROW": "3",
            "SAT_FI_BAD_IMAGE_EVERY": "7", "SAT_FI_SLOW_STEP_MS": "1"}
     plan = faultinject.FaultPlan.from_env(env)
-    assert dataclasses.asdict(plan) == dataclasses.asdict(JaxFaultPlan.from_env(env))
+    ours = dataclasses.asdict(plan)
+    # beside the JAX fields: the port's own knob (SAT_FI_SLOW_STEP_SCALE,
+    # not set here) and maybe_slow's clock, idle without it
+    assert {k: ours.pop(k) for k in ("slow_step_scale", "_slow_mark", "_own_steps")} == {
+        "slow_step_scale": None, "_slow_mark": None, "_own_steps": []}
+    assert ours == dataclasses.asdict(JaxFaultPlan.from_env(env))
     _, state = trained
     metrics = {"total_loss": torch.tensor(1.0)}
     assert plan.maybe_poison(1, state, metrics) == (state, metrics)
@@ -545,3 +550,37 @@ def test_fault_plan_reads_the_jax_knobs_and_poisons_a_port_state(trained):
     assert plan.maybe_poison(2, state, metrics) == (state, metrics)
     with pytest.raises(faultinject.SimulatedPreemption):
         plan.maybe_kill(5)
+
+
+@pytest.mark.parametrize("scale", [None, "2"], ids=["fixed", "scaled"])
+def test_fault_plan_slow_step_scale_follows_the_own_step(monkeypatch, scale):
+    """``SAT_FI_SLOW_STEP_SCALE=k``, the port's own knob: each stall is
+    SLOW_STEP_MS or k times the median of the process's own steps so
+    far, the longer (an own step: the time between two calls less the
+    stall slept, the first interval left out); without it every stall is
+    SLOW_STEP_MS and the plan keeps no clock."""
+    from types import SimpleNamespace
+
+    clock, slept = [0.0], []
+
+    def sleep(seconds):
+        slept.append(seconds)
+        clock[0] += seconds
+
+    monkeypatch.setattr(faultinject, "time", SimpleNamespace(perf_counter=lambda: clock[0], sleep=sleep))
+    env = {"SAT_FI_SLOW_STEP_MS": "100"}
+    if scale:
+        env["SAT_FI_SLOW_STEP_SCALE"] = scale
+    plan = faultinject.FaultPlan.from_env(env)
+    assert not plan.inert
+    for step, own in enumerate([5.0, 0.02, 0.3, 0.3, 0.0]):
+        plan.maybe_slow(step)
+        clock[0] += own
+    if scale:
+        # own steps .02 | .02 .3 | .02 .3 .3: medians .02, .16, .3; twice the
+        # first is under the 0.1 s floor
+        assert slept == pytest.approx([0.1, 0.1, 0.1, 0.32, 0.6])
+        assert plan._own_steps == pytest.approx([5.0, 0.02, 0.3, 0.3])
+    else:
+        assert slept == pytest.approx([0.1] * 5)
+        assert plan._own_steps == [] and plan._slow_mark is None

@@ -1,0 +1,9 @@
+"""The whole offline step's share of the card's bf16 peak: the window's
+operations (encoder convs, decoder matmuls, attention; the benchmark's own
+counts from shapes) over the window's length times 989 TFLOP/s."""
+
+from capbench.roofline import BF16_FLOPS
+
+
+def read(rec):
+    return 100.0 * rec["flops"] / (rec["window_s"] * BF16_FLOPS) if rec.get("flops") else None
